@@ -6,27 +6,44 @@
 1. Requires a CUDA device and prints the card's name and power limit.
    TF32 is switched off for matmuls and cuDNN, so every float32 product
    (the plain versions included) runs in full float32.
-2. Builds the InfoNCE kernels (`rlap_tpu_torch/csrc/infonce.cu`) with nvcc.
-3. Holds each kernel against its plain PyTorch version: n=2048 f=128 and
-   ragged n=1000 f=100, masked and unmasked, tau 0.2 and 0.5, and at the
-   main path's shape. Values within rtol 1e-5 / atol 1e-5, gradients
-   within rtol 1e-4 / atol 1e-6. Times each kernel, its plain version and
-   the yardstick F.cross_entropy(a @ b.T / tau, arange(n)) with CUDA events.
-   On alike rows, and for one training step on a small graph, holds the
-   kernels against float64 (error within 1e-4 of the largest entry).
-4. Drives the main path: GraceTrainer(Compose([RLap(0.2),
+2. Builds both kernel libraries with nvcc, side by side: the InfoNCE
+   kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the eight access probes
+   (`rlap_tpu_torch/csrc/access.cu`), and prints ptxas's resource lines.
+3. Holds each InfoNCE kernel against its plain PyTorch version: n=2048
+   f=128 and ragged n=1000 f=100, masked and unmasked, tau 0.2 and 0.5,
+   and at the main path's shape. Values within rtol 1e-5 / atol 1e-5,
+   gradients within rtol 1e-4 / atol 1e-6. Times each kernel, its plain
+   version and the yardstick F.cross_entropy(a @ b.T / tau, arange(n))
+   with CUDA events. On alike rows, and for one training step on a small
+   graph, holds the kernels against float64 (error within 1e-4 of the
+   largest entry).
+4. Probe phase. Holds the eight access kernels bit-equal against their
+   plain versions at a ragged shape (n=1000, E=12345, M=97 index tiles),
+   one launch counted per call; times `take` and `scatter_min` on the
+   index stream of the rLap selection on BA(n, m=8) (both endpoints of
+   the canonical edge pool) beside torch's `index_select` and
+   `scatter_reduce_`, and the selection itself as the port runs it in a
+   view's first round; then drives the probe entry point
+   `rlap_tpu_torch.bench.probe_access.run` at n=100000, E=1600000 with
+   the access counts set to 0 just before and read just after. The entry
+   point holds each kernel bit-equal at that shape before it times it.
+5. Checks that `approximate_cholesky(barabasi_albert(2000, 8), rng.key(0),
+   400)` runs with no `device=` anywhere.
+6. Drives the training path: GraceTrainer(Compose([RLap(0.2),
    FeatureMasking(0.3)]) x 2, hidden 128, 2 layers) on BA(n, m=8) with
-   128-d features, 1 warm-up and 3 timed steps, and checks that each view
+   128-d features, 1 warm-up and 3 timed steps, with the InfoNCE counts
+   set to 0 just before and read just after, and checks that each view
    removed int(0.2 n) nodes, that the losses are finite, and that each
    InfoNCE kernel ran twice per step.
-5. Prints one JSON line of kernels, one of the main path, the nvidia-smi
-   line, and last {"ok": true, "device": {...}}. Any failed check raises
-   and the script exits non-zero.
+7. Prints one JSON line of the probe, one of the main path, one of all
+   eleven kernels, the nvidia-smi line, and last {"ok": true, "device":
+   {...}}. Any failed check raises and the script exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -40,13 +57,16 @@ import torch.nn.functional as F
 from rlap_tpu_torch.augment.base import Compose
 from rlap_tpu_torch.augment.feature import FeatureMasking
 from rlap_tpu_torch.augment.rlap import RLap
+from rlap_tpu_torch.bench import probe_access as P
 from rlap_tpu_torch.core import graph as G
 from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.data.synthetic import barabasi_albert
 from rlap_tpu_torch.models.grace import GraceTrainer
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
+from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
-from rlap_tpu_torch.ops.rlap import eliminate
+from rlap_tpu_torch.ops.rlap import (_entry, _select, approximate_cholesky,
+                                     eliminate)
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM bandwidth
@@ -55,10 +75,20 @@ HBM_BYTES = 3.35e12
 STEPS = 3
 FRAC = 0.2
 LIBRARY_N = 16384
+PROBE_N, PROBE_E, PROBE_REPS = 100_000, 1_600_000, 10
+RAGGED_N, RAGGED_E, RAGGED_M = 1000, 12_345, 97
 REPLACES = {
     "infonce_fwd": "rlap_tpu/ops/infonce_pallas.py:37",
     "infonce_bwd_da": "rlap_tpu/ops/infonce_pallas.py:86",
     "infonce_bwd_db": "rlap_tpu/ops/infonce_pallas.py:104",
+    "take": "tools/probe_access.py:139",
+    "take_two_level": "tools/probe_access.py:180",
+    "take_scalar": "tools/probe_access.py:215",
+    "scatter_min": "tools/probe_access.py:251",
+    "take2d": "tools/probe_access2.py:53",
+    "take_axis0": "tools/probe_access2.py:102",
+    "take_axis1": "tools/probe_access2.py:143",
+    "take_axis0_axis1": "tools/probe_access2.py:194",
 }
 TOL = {"infonce_fwd": (1e-5, 1e-5), "infonce_bwd_da": (1e-4, 1e-6),
        "infonce_bwd_db": (1e-4, 1e-6)}
@@ -254,6 +284,70 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
     return rows
 
 
+def probe_phase(g) -> tuple:
+    """The access kernels: ragged check, the rLap selection's index stream,
+    then the probe entry point with its launches counted. Returns (the
+    entry point's result, launches per kernel in its run)."""
+    errs = P.check(P.make_inputs(RAGGED_N, RAGGED_E, RAGGED_M, 1, "cuda", 1))
+    print(f"access kernels bit-equal to their plain versions at n={RAGGED_N} "
+          f"E={RAGGED_E} M={RAGGED_M}: max abs err {json.dumps(errs)}",
+          flush=True)
+
+    # _select gathers pack[dst] and scatter-mins it into nmin[src], over
+    # both directions of every pool edge
+    n, t = g.num_nodes, int(FRAC * g.num_nodes)
+    s, r, _w, _t = _entry(g, t)
+    src = torch.cat([s, r]).to(torch.int32)
+    dst = torch.cat([r, s]).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prio = torch.randint(0, 1 << 30, (n,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    stream = P.time_stream(prio, dst, src, A.take(prio, dst), PROBE_REPS)
+    # beside it, the selection as the port runs it in the first round of a
+    # view: int64 priorities, and only the edges with both ends pending
+    pos = torch.empty(n, dtype=torch.int64, device="cuda")
+    pos[torch.randperm(n, generator=gen, device="cuda")] = torch.arange(
+        n, device="cuda")
+    pending = pos < t
+    prio64 = torch.bincount(torch.cat([s, r]), minlength=n) * (n + 1) + pos
+    stream["select_round1_ms"] = cuda_ms(
+        lambda: _select(s, r, pending, prio64), 10)
+    stream["select_round1_indices_scanned"] = 2 * int(
+        (pending[s] & pending[r]).sum())
+    stream["select_round1_selected"] = int(
+        _select(s, r, pending, prio64).sum())
+    print(f"rlap_select_stream BA(n={n}, m=8): "
+          f"{json.dumps(stream)}", flush=True)
+
+    A.reset_launch_counts()
+    res = P.run(PROBE_N, PROBE_E, PROBE_REPS,
+                emit=lambda line: print(line, flush=True))
+    launches = dict(A.launch_counts)
+    for name in A.KERNELS:
+        row = res["kernels"][name]
+        # the entry point's own comparison with the plain version is one
+        # more launch than the timed ones it reports
+        require(row["launches"] > 0 and launches[name] == row["launches"] + 1,
+                f"{name}: {launches[name]} launches counted, the probe "
+                f"reports {row['launches']}")
+        require(row["max_abs_err"] == 0, f"{name}: {row}")
+        launches[name] = row["launches"]
+    res["rlap_select_stream"] = stream
+    return res, launches
+
+
+def check_default_device() -> None:
+    """A graph and a key made with no `device=` meet on the card."""
+    g = barabasi_albert(2000, 8)
+    out = approximate_cholesky(g, rng.key(0), 400)
+    require(out.device.type == "cuda", f"output on {out.device}")
+    isolated = int((G.degrees(out) == 0).sum()) - int(
+        (G.degrees(g) == 0).sum())
+    require(isolated == 400, f"removed {isolated} nodes, expected 400")
+    print("approximate_cholesky with no device= ran on the card, removed "
+          "400 of 2000 nodes", flush=True)
+
+
 def sync_s() -> float:
     torch.cuda.synchronize()
     return time.perf_counter()
@@ -319,14 +413,18 @@ def check_step_against_float64(f: int, n: int = 2000) -> None:
           f"worst error / max entry: {json.dumps(worst)}", flush=True)
 
 
-def main_path(n: int, f: int) -> tuple:
+def make_graph(n: int, f: int):
     t0 = time.perf_counter()
     g = barabasi_albert(n, 8, seed=0, device="cuda")
     x = np.random.default_rng(0).normal(size=(n, f)).astype(np.float32)
     g = g.replace(x=torch.as_tensor(x, device="cuda"))
-    edges = int(g.num_edges)
-    print(f"BA(n={n}, m=8): {edges} directed edges, made in "
+    print(f"BA(n={n}, m=8): {int(g.num_edges)} directed edges, made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return g
+
+
+def main_path(g, f: int) -> tuple:
+    n, edges = g.num_nodes, int(g.num_edges)
     num_remove = int(FRAC * n)
     input_isolated = int((G.degrees(g) == 0).sum())
 
@@ -413,16 +511,25 @@ def main(argv=None) -> int:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t = time.perf_counter()
-    lib, log = K.build(("-Xptxas", "-v"))
-    print(f"built {lib.name} in {time.perf_counter() - t:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(mod.build, ("-Xptxas", "-v"))
+                  for mod in (K, A)]
+        built = [b.result() for b in builds]
+    print(f"built {', '.join(lib.name for lib, _ in built)} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for _lib, log in built:
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
     f = 128
     rows = kernel_phase(args.n, f)
     check_step_against_float64(f)
-    summary, launches = main_path(args.n, f)
+    g = make_graph(args.n, f)
+    probe, probe_launches = probe_phase(g)
+    print(json.dumps({"probe_access": probe}), flush=True)
+    check_default_device()
+    summary, launches = main_path(g, f)
     print(json.dumps({"main_path": summary}), flush=True)
 
     kernels = [{"name": name, "route": "cuda",
@@ -430,6 +537,16 @@ def main(argv=None) -> int:
                 "replaces": REPLACES[name], "launches": launches[name],
                 "n": args.n, "f": f, **rows[name]}
                for name in K.KERNELS]
+    for name in A.KERNELS:
+        row = probe["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "rlap_tpu_torch/csrc/access.cu",
+            "replaces": REPLACES[name], "launches": probe_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["yardstick_ms"],
+            "shape": {"table": probe["n"], "indices": row["elements"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

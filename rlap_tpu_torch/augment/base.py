@@ -1,6 +1,6 @@
 """Augmentor protocol: (Graph, key) -> Graph, with explicit generator keys.
-Counterpart of `rlap_tpu/augment/base.py` (`RandomChoice` and
-`CachedAugmentor` wait for a later slice)."""
+Counterpart of `rlap_tpu/augment/base.py`. Eager PyTorch has no traced
+variant, so the JAX package's `traceable` methods have no counterpart."""
 
 from __future__ import annotations
 
@@ -37,3 +37,40 @@ class Compose(Augmentor):
         for i, aug in enumerate(self.augmentors):
             g = aug(g, fold_in(key, i))
         return g
+
+
+class RandomChoice(Augmentor):
+    """Apply `num_choices` of the augmentors, drawn without replacement
+    per call from `fold_in(key, 0xC401CE)`; the j-th chosen one gets
+    `fold_in(key, j + 1)`. The selection is read on the host."""
+
+    def __init__(self, augmentors: Sequence[Augmentor], num_choices: int = 1):
+        self.augmentors = list(augmentors)
+        self.num_choices = num_choices
+
+    def augment(self, g: Graph, key: torch.Generator) -> Graph:
+        sel_key = fold_in(key, 0xC401CE)
+        idx = torch.randperm(len(self.augmentors), generator=sel_key,
+                             device=sel_key.device)[:self.num_choices]
+        for j, i in enumerate(idx.tolist()):
+            g = self.augmentors[i](g, fold_in(key, j + 1))
+        return g
+
+
+class CachedAugmentor(Augmentor):
+    """Wrap an augmentor so that its output is reused for `refresh_every`
+    calls before it is computed again."""
+
+    def __init__(self, inner: Augmentor, refresh_every: int = 50):
+        self.inner = inner
+        self.refresh_every = refresh_every
+        self._cache = None
+        self._count = 0
+
+    def augment(self, g: Graph, key: torch.Generator) -> Graph:
+        if self._cache is not None and self._count < self.refresh_every:
+            self._count += 1
+            return self._cache
+        self._cache = self.inner(g, key)
+        self._count = 1
+        return self._cache

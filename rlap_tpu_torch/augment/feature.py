@@ -31,3 +31,13 @@ class FeatureMasking(Augmentor):
         if g.x is None:
             return g
         return g.replace(x=mask_feature_dims(g.x, key, self.pf))
+
+
+class FeatureDropout(Augmentor):
+    def __init__(self, pf: float):
+        self.pf = pf
+
+    def augment(self, g: Graph, key: torch.Generator) -> Graph:
+        if g.x is None:
+            return g
+        return g.replace(x=dropout_features(g.x, key, self.pf))

@@ -1,0 +1,343 @@
+"""Probe the cost of random table access on the card.
+
+    python -m rlap_tpu_torch.bench.probe_access [n] [E] [reps] [--device cpu]
+
+Counterpart of `tools/probe_access.py` and `tools/probe_access2.py`
+together. The rLap round is dominated by vertex-table access: gathers from
+an n-entry table by ~2 |edges| indices and scatter-mins into one
+(`rlap_tpu_torch/ops/rlap.py` `_select`). This probe times, at the table
+size n and index count E of a graph (defaults: BA(100k, m=8)):
+
+  A. torch gathers: `index_select` on random and on sorted indices, and
+     `gather` on random ones;
+  B. torch scatters: `index_add_` and `scatter_reduce_("amin")` on random
+     and on sorted indices;
+  D. `torch.sort` of E keys with two payloads;
+  C1-C4, V1-V4. the eight hand-written kernels of
+     `rlap_tpu_torch/ops/access.py`, each held bit-equal against its plain
+     version first, then timed beside that plain version and a yardstick:
+     A1 for the lookups, B2 for `scatter_min`, `take_along_dim` on
+     ready-made int64 indices for V2-V4.
+
+Nothing is caught: a kernel that fails to build, launch or match raises.
+On the card the times are CUDA-event times over `reps` launches, each on
+indices it has not seen, queued behind a matrix product so that the host's
+launch cost is off the clock. With `--device cpu` the wrappers run their
+plain versions and the times are host-clock times of those (`"timer":
+"host clock"` in the result): they say nothing about the card.
+
+The bound of each kernel is its bytes (each input read once, each output
+written once) over the H100's 3.35 TB/s; none does arithmetic worth
+counting. `take_scalar` is a latency probe: its bytes bound is printed and
+means nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Callable, Dict, List, Sequence
+
+import torch
+
+from rlap_tpu_torch import resolve_device
+from rlap_tpu_torch.ops import access as A
+
+HBM_BYTES = 3.35e12  # H100 SXM, NVIDIA's data sheet
+TILE = 8192  # elements of the scalar probe, as in the tool
+_BLOCKER = 4096  # side of the matrix product that holds the queue back
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn: Callable, args: Sequence[tuple]) -> float:
+    """Mean ms of `fn(*a)` over `args[1:]`, after `fn(*args[0])` as warm-up.
+    CUDA events on the card, the host clock on the CPU."""
+    fn(*args[0])
+    reps = len(args) - 1
+    dev = args[0][0].device
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for a in args[1:]:
+            fn(*a)
+        return 1e3 * (time.perf_counter() - t0) / reps
+    block = torch.zeros((_BLOCKER, _BLOCKER), device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    block @ block
+    start.record()
+    for a in args[1:]:
+        fn(*a)
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+def make_inputs(n: int, e: int, m: int, sets: int, device, seed: int) -> dict:
+    """A table of n int32 entries (padded with zeros to NT, a multiple of
+    128, and as [R, 128]), and `sets` fresh draws of E indices, E values
+    and [M, 128] index tiles, all from `seed` on `device`."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    nt = -(-n // A.LANES) * A.LANES
+    table = draw(1 << 30, (n,))
+    tpad = torch.cat([table, torch.zeros(nt - n, dtype=torch.int32,
+                                         device=dev)])
+    return {"n": n, "nt": nt, "e": e, "m": m, "table": table, "tpad": tpad,
+            "tab2d": tpad.view(nt // A.LANES, A.LANES),
+            "idx": [draw(n, (e,)) for _ in range(sets)],
+            "val": [draw(1 << 20, (e,)) for _ in range(sets)],
+            "idx2": [draw(n, (m, A.LANES)) for _ in range(sets)]}
+
+
+def _calls(inp: dict) -> Dict[str, tuple]:
+    """name -> (kernel wrapper, plain version, argument tuples)."""
+    tile = min(TILE, inp["e"])
+    nt = inp["nt"]
+    one_d = [(inp["table"], i) for i in inp["idx"]]
+    two_level = [(inp["tab2d"], i) for i in inp["idx"]]
+    tiles = [(inp["tab2d"], i) for i in inp["idx2"]]
+    return {
+        "take": (A.take, A.take_plain, one_d),
+        "take_two_level": (A.take_two_level, A.take_two_level_plain,
+                           two_level),
+        "take_scalar": (A.take_scalar, A.take_plain,
+                        [(inp["table"], i[:tile]) for i in inp["idx"]]),
+        "scatter_min": (A.scatter_min, A.scatter_min_plain,
+                        [(i, v, nt) for i, v in zip(inp["idx"], inp["val"])]),
+        "take2d": (A.take2d, A.take_two_level_plain, tiles),
+        "take_axis0": (A.take_axis0, A.take_axis0_plain, tiles),
+        "take_axis1": (A.take_axis1, A.take_axis1_plain, tiles),
+        "take_axis0_axis1": (A.take_axis0_axis1, A.take_axis0_axis1_plain,
+                             tiles),
+    }
+
+
+def check(inp: dict) -> Dict[str, int]:
+    """Hold each of the eight kernels against its plain version on the
+    first draw of `inp`: bit-equal, and one launch counted per call on the
+    card (none on the CPU). Returns the max abs error per kernel: 0."""
+    errs = {}
+    on_card = inp["table"].device.type == "cuda"
+    for name, (kern, plain, args) in _calls(inp).items():
+        before = A.launch_counts[name]
+        got, ref = kern(*args[0]), plain(*args[0])
+        if on_card:
+            torch.cuda.synchronize(inp["table"].device)
+        _require(A.launch_counts[name] - before == int(on_card),
+                 f"{name}: {A.launch_counts[name] - before} launches counted "
+                 f"for one call on {inp['table'].device}")
+        _require(got.shape == ref.shape and got.dtype == ref.dtype,
+                 f"{name}: {got.shape} {got.dtype} against {ref.shape} "
+                 f"{ref.dtype}")
+        errs[name] = int((got.long() - ref.long()).abs().max()) \
+            if got.numel() else 0
+        _require(torch.equal(got, ref),
+                 f"{name}: differs from its plain version at n={inp['n']} "
+                 f"E={inp['e']} M={inp['m']}, max abs err {errs[name]}")
+    return errs
+
+
+def bounds_ms(inp: dict) -> Dict[str, float]:
+    """Bytes each kernel must move (indices and values read once, the part
+    of the table it can touch read once, outputs written once; the
+    scatter-min table written by the fill and by the reduction), in ms at
+    the HBM rate."""
+    n, nt, e, cells = inp["n"], inp["nt"], inp["e"], inp["m"] * A.LANES
+    tile = min(TILE, e)
+    nbytes = {
+        "take": 8 * e + 4 * n,
+        "take_two_level": 8 * e + 4 * nt,
+        "take_scalar": 8 * tile + 4 * min(n, tile),
+        "scatter_min": 8 * e + 8 * nt,
+        "take2d": 8 * cells + 4 * nt,
+        "take_axis0": 8 * cells + 4 * nt,
+        "take_axis1": 8 * cells + 4 * A.LANES,
+        "take_axis0_axis1": 8 * cells + 4 * nt,
+    }
+    return {k: 1e3 * v / HBM_BYTES for k, v in nbytes.items()}
+
+
+def _index_select(table, idx64) -> torch.Tensor:
+    return torch.index_select(table, 0, idx64)
+
+
+def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
+                scatter_idx: torch.Tensor, val: torch.Tensor,
+                reps: int) -> dict:
+    """`take` by `gather_idx` and `scatter_min` of `val` at `scatter_idx`
+    on given index streams, beside torch's `index_select` and
+    `scatter_reduce_("amin")` on the same streams as int64. Each
+    repetition works on its own copy of the streams, so that the indices
+    come from device memory and not from L2."""
+    n = table.shape[0]
+    sets = range(reps + 1)
+    gathers = [gather_idx.clone() for _ in sets]
+    scatters = [scatter_idx.clone() for _ in sets]
+    vals = [val.clone() for _ in sets]
+    _require(torch.equal(A.take(table, gather_idx),
+                         A.take_plain(table, gather_idx))
+             and torch.equal(A.scatter_min(scatter_idx, val, n),
+                             A.scatter_min_plain(scatter_idx, val, n)),
+             "take or scatter_min differs from its plain version on the "
+             "given stream")
+    return {
+        "n": n, "e": gather_idx.shape[0],
+        "take_ms": time_ms(A.take, [(table, i) for i in gathers]),
+        "index_select_ms": time_ms(
+            _index_select, [(table, i.to(torch.int64)) for i in gathers]),
+        "scatter_min_ms": time_ms(
+            A.scatter_min, [(i, v, n) for i, v in zip(scatters, vals)]),
+        "scatter_reduce_ms": time_ms(
+            _torch_scatter_min,
+            [(i.to(torch.int64), v, n) for i, v in zip(scatters, vals)]),
+    }
+
+
+def _torch_scatter_min(idx64, val, size: int) -> torch.Tensor:
+    out = torch.full((size,), A.FILL, dtype=torch.int32, device=val.device)
+    return out.scatter_reduce_(0, idx64, val, "amin")
+
+
+def _torch_sections(inp: dict, emit) -> Dict[str, float]:
+    """Sections A, B and D: torch's own gathers, scatters and sort."""
+    table, n = inp["table"], inp["n"]
+    rnd = [i.to(torch.int64) for i in inp["idx"]]
+    srt = [torch.sort(i).values for i in rnd]
+    fval = [v.to(torch.float32) for v in inp["val"]]
+
+    def add(i, v):
+        return torch.zeros(n, dtype=torch.float32,
+                           device=v.device).index_add_(0, i, v)
+
+    def sort3(k, p1, p2):
+        keys, order = torch.sort(k)
+        return keys, p1[order], p2[order]
+
+    rows = [
+        ("A1 index_select, random idx", _index_select,
+         [(table, i) for i in rnd]),
+        ("A2 index_select, sorted idx", _index_select,
+         [(table, i) for i in srt]),
+        ("A3 gather, random idx",
+         lambda t, i: torch.gather(t, 0, i), [(table, i) for i in rnd]),
+        ("B1 index_add_, random idx", add, list(zip(rnd, fval))),
+        ("B2 scatter_reduce_ amin, random idx", _torch_scatter_min,
+         [(i, v, n) for i, v in zip(rnd, inp["val"])]),
+        ("B3 index_add_, sorted idx", add, list(zip(srt, fval))),
+        ("B4 scatter_reduce_ amin, sorted idx", _torch_scatter_min,
+         [(i, v, n) for i, v in zip(srt, inp["val"])]),
+        ("D1 sort E keys + 2 payloads", sort3,
+         [(i, j, v) for i, j, v in zip(inp["idx"], rnd, fval)]),
+    ]
+    out = {}
+    for name, fn, args in rows:
+        out[name] = time_ms(fn, args)
+        emit(f"{name:55s} {out[name]:9.4f} ms")
+    return out
+
+
+def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
+    """One torch call for each kernel's function. V2-V4 time
+    `take_along_dim` on int64 rows and lanes made beforehand."""
+    tab2d, m = inp["tab2d"], inp["m"]
+    rows = [(i // A.LANES).to(torch.int64) for i in inp["idx2"]]
+    lanes = [(i % A.LANES).to(torch.int64) for i in inp["idx2"]]
+    row0 = tab2d[0:1].expand(m, A.LANES)
+    a1 = torch_ms["A1 index_select, random idx"]
+    tile = min(TILE, inp["e"])
+    return {
+        "take": a1, "take_two_level": a1,
+        "take_scalar": time_ms(_index_select,
+                               [(inp["table"], i[:tile].to(torch.int64))
+                                for i in inp["idx"]]),
+        "take2d": time_ms(_index_select,
+                          [(inp["tpad"], i.reshape(-1).to(torch.int64))
+                           for i in inp["idx2"]]),
+        "scatter_min": torch_ms["B2 scatter_reduce_ amin, random idx"],
+        "take_axis0": time_ms(lambda t, r: torch.take_along_dim(t, r, 0),
+                              [(tab2d, r) for r in rows]),
+        "take_axis1": time_ms(lambda t, ln: torch.take_along_dim(t, ln, 1),
+                              [(row0, ln) for ln in lanes]),
+        "take_axis0_axis1": time_ms(
+            lambda t, r, ln: torch.take_along_dim(
+                torch.take_along_dim(t, r, 0), ln, 1),
+            [(tab2d, r, ln) for r, ln in zip(rows, lanes)]),
+    }
+
+
+def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
+        seed: int = 0, emit: Callable[[str], None] = print) -> dict:
+    """Run every section at table size `n` and `e` indices (the 2-D kernels
+    on `e // 128` tiles of 128) on `device` (the card by default). Returns
+    the result, which `main` prints as one JSON line."""
+    dev = resolve_device(device)
+    _require(n > 0 and e >= A.LANES and reps > 0,
+             f"need n > 0, E >= {A.LANES} and reps > 0, got {n} {e} {reps}")
+    on_card = dev.type == "cuda"
+    name = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    emit(f"device: {name} n={n} E={e} reps={reps}")
+    inp = make_inputs(n, e, e // A.LANES, reps + 1, dev, seed)
+    torch_ms = _torch_sections(inp, emit)
+
+    errs = check(inp)
+    emit(f"C1-C4, V1-V4 bit-equal to their plain versions at n={n} E={e} "
+         f"M={inp['m']}")
+    before = dict(A.launch_counts)
+    yard = _yardsticks(inp, torch_ms)
+    bound = bounds_ms(inp)
+    scalar_reps = min(reps, 3)
+    kernels = {}
+    for kname, (kern, plain, args) in _calls(inp).items():
+        if kname == "take_scalar":
+            args = args[:scalar_reps + 1]
+        ms = time_ms(kern, args)
+        elems = args[0][-1].numel() if kname != "scatter_min" else e
+        kernels[kname] = {
+            "ms": ms, "plain_ms": time_ms(plain, args),
+            "yardstick_ms": yard[kname], "bound_ms": bound[kname],
+            "bound_by": "bytes", "elements": elems,
+            "elements_per_s": elems / (1e-3 * ms), "max_abs_err": errs[kname],
+            "launches": A.launch_counts[kname] - before[kname],
+        }
+        emit(f"{kname:20s} {ms:9.4f} ms  plain {kernels[kname]['plain_ms']:9.4f}"
+             f"  yardstick {yard[kname]:9.4f}  bound {bound[kname]:.5f} ms")
+    sc = kernels["take_scalar"]
+    sc["ms_scaled_to_e"] = sc["ms"] * e / sc["elements"]
+    emit(f"   take_scalar scaled to E: {sc['ms_scaled_to_e']:.1f} ms")
+    return {"device": name, "timer": "cuda events" if on_card
+            else "host clock", "n": n, "nt": inp["nt"], "e": e,
+            "m": inp["m"], "reps": reps, "torch_ms": torch_ms,
+            "kernels": kernels}
+
+
+def main(argv: List[str] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("n", type=int, nargs="?", default=100_000,
+                    help="table entries")
+    ap.add_argument("e", type=int, nargs="?", default=1_600_000,
+                    help="indices")
+    ap.add_argument("reps", type=int, nargs="?", default=10)
+    ap.add_argument("--device", default=None,
+                    help="cpu to run the plain versions on the host")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    res = run(args.n, args.e, args.reps, device=args.device, seed=args.seed,
+              emit=lambda s: print(s, flush=True))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

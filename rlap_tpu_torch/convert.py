@@ -6,13 +6,16 @@ The parameters arrive as a nested dict of numpy arrays, as flax's
 `project/fc1/{kernel, bias}`. flax stores a dense kernel as [in, out] and
 `nn.Linear` its weight as [out, in], so kernels are transposed. The
 port's `GCNEncoder` keeps its layers in `convs` and `acts` lists, so
-`conv_i` and `act_i` become `convs.i` and `acts.i`.
+`conv_i` and `act_i` become `convs.i` and `acts.i`. `MLP`'s `dense_i` and
+`MaskedBatchNorm`'s `scale` and `bias` keep their names; its running
+statistics live in flax's separate `batch_stats` collection (`mean`,
+`var`) and become the module's buffers of the same names.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,8 +29,10 @@ def _name(key: str) -> str:
     return f"{m[1]}s.{m[2]}" if m else key
 
 
-def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A `state_dict` for the port's module of the same structure."""
+def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A `state_dict` for the port's module of the same structure, from
+    flax's `params` and, where the module has batch norms, `batch_stats`."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str):
@@ -42,12 +47,16 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                     np.array(v, dtype=np.float32))
 
     walk(params, "")
+    if batch_stats is not None:
+        walk(batch_stats, "")
     return out
 
 
-def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
-    """Copy flax parameters into `module` in place (strict: every parameter
-    on both sides must match). Returns the module."""
-    state = flax_to_state_dict(params)
+def load_flax_params(module: nn.Module, params: Mapping,
+                     batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Copy flax parameters (and batch statistics) into `module` in place
+    (strict: every parameter and buffer on both sides must match). Returns
+    the module."""
+    state = flax_to_state_dict(params, batch_stats)
     module.load_state_dict(state, strict=True)
     return module

@@ -182,6 +182,16 @@ def drop_zero_weight(g: Graph) -> Graph:
     return _to_padding(g, (g.weights == 0) & g.edge_mask)
 
 
+def to_undirected(g: Graph, reduce: str = "max") -> Graph:
+    """Symmetrise: both directions of every live edge, coalesced. With
+    reduce="max" an already symmetric graph is a fixed point. The capacity
+    doubles."""
+    big = g.replace(senders=torch.cat([g.senders, g.receivers]),
+                    receivers=torch.cat([g.receivers, g.senders]),
+                    weights=torch.cat([g.weights, g.weights]))
+    return coalesce(big, reduce=reduce)
+
+
 def remove_self_loops(g: Graph) -> Graph:
     return _to_padding(g, (g.senders == g.receivers) & g.edge_mask)
 
@@ -220,6 +230,23 @@ def weighted_degrees(g: Graph) -> torch.Tensor:
     return _segment_sum_nodes(g.weights, g.senders, g.num_nodes)
 
 
+def induced_subgraph(g: Graph, keep: torch.Tensor) -> Graph:
+    """Kill edges with either endpoint outside `keep` (bool[num_nodes]).
+    Node ids are preserved: nothing is relabelled."""
+    kp = torch.cat([keep, torch.zeros((1,), dtype=torch.bool,
+                                      device=keep.device)])
+    alive = g.edge_mask & kp[g.senders] & kp[g.receivers]
+    return _to_padding(g, ~alive)
+
+
+def mirror_indices(g: Graph) -> torch.Tensor:
+    """For a symmetric, coalesced, (s, r)-sorted edge list: the index of
+    each edge's reversed twin. (Sorting by (r, s) lists the mirrors in
+    order.)"""
+    return torch.argsort(g.receivers * (g.num_nodes + 1) + g.senders,
+                         stable=True)
+
+
 def with_capacity(g: Graph, edge_capacity: int) -> Graph:
     """Grow (or shrink, when the tail is padding) the edge capacity."""
     cap = g.edge_capacity
@@ -238,6 +265,54 @@ def with_capacity(g: Graph, edge_capacity: int) -> Graph:
     return g.replace(senders=g.senders[:edge_capacity],
                      receivers=g.receivers[:edge_capacity],
                      weights=g.weights[:edge_capacity])
+
+
+def block_diagonal(graphs: list, node_capacity: int, edge_capacity: int,
+                   feature_dim: Optional[int] = None, device=None) -> tuple:
+    """Disjoint union of `graphs` into one padded Graph, assembled on the
+    host and built on `device` (the card by default).
+
+    Returns (graph, segment_ids): segment_ids, int64[node_capacity], maps
+    each node to the index of its source graph, padding nodes to
+    len(graphs). Featureless graphs get x = ones of width `feature_dim`.
+    """
+    ss, rr, ww, xs, seg = [], [], [], [], []
+    off = 0
+    for gi, g in enumerate(graphs):
+        m = g.edge_mask.cpu().numpy()
+        ss.append(g.senders.cpu().numpy()[m] + off)
+        rr.append(g.receivers.cpu().numpy()[m] + off)
+        ww.append(g.weights.cpu().numpy()[m])
+        if g.x is not None:
+            xs.append(g.x.cpu().numpy())
+        seg.append(np.full((g.num_nodes,), gi, np.int64))
+        off += g.num_nodes
+    if off > node_capacity:
+        raise ValueError(f"node_capacity {node_capacity} < total nodes {off}")
+    s = np.concatenate(ss) if ss else np.zeros((0,), np.int64)
+    r = np.concatenate(rr) if rr else np.zeros((0,), np.int64)
+    w = np.concatenate(ww) if ww else np.zeros((0,), np.float64)
+    if s.shape[0] > edge_capacity:
+        raise ValueError(
+            f"edge_capacity {edge_capacity} < total edges {s.shape[0]}")
+    seg_ids = np.full((node_capacity,), len(graphs), np.int64)
+    if seg:
+        seg_ids[:off] = np.concatenate(seg)
+    node_mask = np.zeros((node_capacity,), bool)
+    node_mask[:off] = True
+    x = None
+    if xs:
+        x = np.zeros((node_capacity, xs[0].shape[1]), xs[0].dtype)
+        x[:off] = np.concatenate(xs, axis=0)
+    elif feature_dim is not None:
+        x = np.zeros((node_capacity, feature_dim), np.float32)
+        x[:off] = 1.0
+    dev = resolve_device(device)
+    g = Graph.from_edges(s, r, num_nodes=node_capacity, weights=w,
+                         edge_capacity=edge_capacity, device=dev)
+    g = g.replace(x=None if x is None else torch.as_tensor(x, device=dev),
+                  node_mask=torch.as_tensor(node_mask, device=dev))
+    return g, torch.as_tensor(seg_ids, device=dev)
 
 
 def to_dense(g: Graph) -> torch.Tensor:

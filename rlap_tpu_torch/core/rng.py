@@ -20,6 +20,8 @@ from typing import List
 
 import torch
 
+from rlap_tpu_torch import resolve_device
+
 _MASK64 = (1 << 64) - 1
 _FOLD, _SPLIT = 0x5EED_F01D, 0x5EED_5B17
 
@@ -32,8 +34,10 @@ def _splitmix64(x: int) -> int:
 
 
 def key(seed: int, device=None) -> torch.Generator:
-    """A root key on `device` (the CPU when None)."""
-    gen = torch.Generator(device=device if device is not None else "cpu")
+    """A root key on `device`: the card when None, as for every other
+    entry point, so that a key and a graph made with the same `device=`
+    (or with none) live together."""
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed) & _MASK64)
     return gen
 

@@ -87,3 +87,25 @@ def synthetic_node_dataset(n: int = 512, num_classes: int = 4,
     x = x / np.maximum(np.abs(x).sum(axis=1, keepdims=True), 1e-12)
     return g.replace(x=torch.as_tensor(x, device=resolve_device(device))), \
         labels
+
+
+def synthetic_graph_dataset(num_graphs: int = 64, n_lo: int = 10,
+                            n_hi: int = 30, num_classes: int = 2,
+                            feature_dim: int = 8, seed: int = 0,
+                            device=None):
+    """A TU-style list of small graphs with graph-level labels: class 0 are
+    sparse ER graphs, class 1 denser ones, so density carries the label.
+    Returns (list of Graph with .x = ones, labels[int32] numpy)."""
+    rng = np.random.default_rng(seed)
+    dev = resolve_device(device)
+    graphs, labels = [], []
+    for i in range(num_graphs):
+        y = i % num_classes
+        n = int(rng.integers(n_lo, n_hi))
+        p = 0.12 + 0.25 * y / max(num_classes - 1, 1)
+        g = erdos_renyi(n, p, seed=int(rng.integers(1 << 31)), device=dev)
+        graphs.append(g.replace(x=torch.ones((n, feature_dim),
+                                             dtype=torch.float32,
+                                             device=dev)))
+        labels.append(y)
+    return graphs, np.asarray(labels, np.int32)

@@ -18,7 +18,7 @@ from torch import nn
 from rlap_tpu_torch import resolve_device
 from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.core.graph import Graph
-from rlap_tpu_torch.models.common import fit, torch_adam
+from rlap_tpu_torch.models.common import checkpointed_fit, torch_adam
 from rlap_tpu_torch.nn.gcn import GCNEncoder, ProjectionHead
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
 
@@ -78,7 +78,7 @@ class GraceTrainer:
         if self.model is not None:
             return
         self.key, k = rng.split(self.key)
-        init = rng.key(k.initial_seed())
+        init = rng.key(k.initial_seed(), device="cpu")
         self.model = GRACE(g.x.shape[1], self.hidden_dim, self.num_layers,
                            self.hidden_dim, generator=init).to(self.device)
         self.optimizer = torch_adam(self.model.parameters(), self.lr,
@@ -106,8 +106,15 @@ class GraceTrainer:
         return self.train_step(*self.views(g.to(self.device)))
 
     def fit(self, g: Graph, max_epochs: int = 2000, tolerance: int = 50,
-            verbose: bool = False) -> list:
-        return fit(self, g, max_epochs, tolerance, verbose=verbose)
+            verbose: bool = False, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 100) -> list:
+        """Train with early stopping. With `checkpoint_dir`, saves every
+        `checkpoint_every` epochs and at the stop, and resumes from the
+        latest checkpoint if there is one (`checkpointed_fit`)."""
+        return checkpointed_fit(self, g, max_epochs, tolerance,
+                                verbose=verbose,
+                                checkpoint_dir=checkpoint_dir,
+                                checkpoint_every=checkpoint_every)
 
     @torch.no_grad()
     def embed(self, g: Graph) -> torch.Tensor:

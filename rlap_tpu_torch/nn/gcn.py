@@ -15,29 +15,8 @@ import torch
 from torch import nn
 
 from rlap_tpu_torch.core.graph import Graph
-from rlap_tpu_torch.nn.layers import PReLU
+from rlap_tpu_torch.nn.layers import PReLU, _dense
 from rlap_tpu_torch.ops.spmm import gcn_norm, spmm
-
-# flax's lecun_normal: truncated_normal(-2, 2) has std 0.8796; dividing by
-# it gives variance 1/fan_in
-_TRUNC_STD = 0.87962566103423978
-
-
-def lecun_normal_(w: torch.Tensor,
-                  generator: Optional[torch.Generator] = None):
-    std = (1.0 / w.shape[1]) ** 0.5 / _TRUNC_STD
-    with torch.no_grad():
-        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        return w.mul_(std)
-
-
-def _dense(fan_in: int, fan_out: int,
-           generator: Optional[torch.Generator]) -> nn.Linear:
-    lin = nn.Linear(fan_in, fan_out)
-    lecun_normal_(lin.weight, generator)
-    nn.init.zeros_(lin.bias)
-    return lin
-
 
 class GCNConv(nn.Module):
     """x @ W (glorot-uniform, no bias), symmetric normalisation with

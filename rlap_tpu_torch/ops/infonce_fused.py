@@ -12,33 +12,27 @@ a CUDA tensor, or raises: there is no fallback on the card. Each launch
 adds one to `launch_counts[name]`, so a run can show that it went through
 the kernels.
 
-The library is built from the repository's source at first use with
-`nvcc` into `build/kernels/` at the repository root, named by a hash of
-the source and flags, and loaded with ctypes.
+The library is built from the repository's source at first use and loaded
+with ctypes, by `rlap_tpu_torch/ops/_build.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-_ROOT = Path(__file__).resolve().parents[2]
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "infonce.cu"
-BUILD_DIR = _ROOT / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from rlap_tpu_torch.ops import _build
+from rlap_tpu_torch.ops._build import BUILD_DIR  # noqa: F401
+from rlap_tpu_torch.ops._build import on_cpu as _on_cpu
+
+_STEM = "infonce"
+SOURCE = _build.source_path(_STEM)
 KERNELS = ("infonce_fwd", "infonce_bwd_da", "infonce_bwd_db")
 
 launch_counts = {name: 0 for name in KERNELS}
-
-_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launch_counts() -> None:
@@ -46,61 +40,24 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and (Path(home) / "bin" / "nvcc").exists():
-            return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libinfonce_{digest}.so"
+    return _build.library_path(_STEM)
 
 
 def build(extra_flags: Tuple[str, ...] = ()) -> Tuple[Path, str]:
     """Compile the kernels unless a library of this source exists.
     Returns (library path, compiler output)."""
-    lib = library_path()
-    if lib.exists() and not extra_flags:
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+    return _build.build(_STEM, extra_flags)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.infonce_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
-        for name in ("infonce_bwd_da", "infonce_bwd_db"):
-            getattr(lib, name).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                           f32, ptr]
-        for name in KERNELS:
-            getattr(lib, name).restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"tensors must all be on one CUDA device or the "
-                         f"CPU, got {[str(t.device) for t in ts]}")
-    return False
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.infonce_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
+    for name in ("infonce_bwd_da", "infonce_bwd_db"):
+        getattr(lib, name).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                       f32, ptr]
+    for name in KERNELS:
+        getattr(lib, name).restype = ctypes.c_int
 
 
 def _launch(name: str, *tensors: torch.Tensor, n: int, f: int,
@@ -109,13 +66,7 @@ def _launch(name: str, *tensors: torch.Tensor, n: int, f: int,
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: needs contiguous float32 tensors, got "
                              f"{t.dtype} contiguous={t.is_contiguous()}")
-    dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_load(), name)(*(t.data_ptr() for t in tensors), n, f,
-                                     1.0 / tau, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    _build.launch(_STEM, _declare, name, tensors, n, f, 1.0 / tau)
     launch_counts[name] += 1
 
 

@@ -127,7 +127,9 @@ def test_entry_points_default_to_the_card():
     g, _ = synthetic_node_dataset(n=32, feature_dim=4, device="cpu")
     from rlap_tpu_torch.core import rng
     with pytest.raises((RuntimeError, AssertionError)):
-        RLap(0.2)(g, rng.key(0))
+        RLap(0.2)(g, rng.key(0, device="cpu"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        rng.key(0)
 
 
 def test_port_imports_no_jax():

@@ -114,7 +114,7 @@ def test_generators_equal_jax(gen):
 
 
 def test_rng_keys_are_pure_and_distinct():
-    k = rng.key(11)
+    k = rng.key(11, device="cpu")
     a = rng.fold_in(k, 3)
     torch.rand(5, generator=k)  # drawing from the parent changes nothing
     b = rng.fold_in(k, 3)

@@ -106,5 +106,13 @@ def test_dual_branch_routes_match_jax(loss, jax_loss):
 
 
 def test_rejects_unported_losses():
+    """`jsd` and `bootstrap` are ported now; a name the JAX package does
+    not have, an unknown mode, and an identity-positive loss off L2L are
+    rejected at construction."""
+    TC.DualBranchContrast(loss="jsd")
     with pytest.raises(ValueError):
-        TC.DualBranchContrast(loss="jsd")
+        TC.DualBranchContrast(loss="triplet")
+    with pytest.raises(ValueError):
+        TC.DualBranchContrast(loss="infonce", mode="L2G")
+    with pytest.raises(ValueError):
+        TC.DualBranchContrast(loss="infonce_fused", mode="G2G")

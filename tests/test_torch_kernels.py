@@ -1,18 +1,21 @@
-"""The fused InfoNCE's CUDA kernels against their plain PyTorch versions,
-and the wrappers' device rules. This file imports nothing of JAX, so on a
+"""The CUDA kernels (fused InfoNCE, access probes) against their plain
+PyTorch versions, and the wrappers' device rules. This file imports nothing of JAX, so on a
 machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 The `cuda` tests skip without a card (the kernels have no CPU mode).
-Values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4 /
-atol 1e-6, in float32 with TF32 off.
+InfoNCE values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4 /
+atol 1e-6, in float32 with TF32 off. The access probes are int32 and must
+be bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rlap_tpu_torch.bench import probe_access as P
+from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
 
 
@@ -94,3 +97,94 @@ def test_library_is_named_by_source_hash():
     assert path.parent == K.BUILD_DIR
     assert path.name.startswith("libinfonce_") and path.suffix == ".so"
     assert path == K.library_path()
+
+
+def test_each_source_has_its_own_library():
+    """One library per `.cu` file, each named by its own source's hash."""
+    import hashlib
+
+    from rlap_tpu_torch.ops import _build
+    paths = {}
+    for mod, stem in ((K, "infonce"), (A, "access")):
+        path = mod.library_path()
+        digest = hashlib.sha256(mod.SOURCE.read_bytes() + " ".join(
+            _build.NVCC_FLAGS).encode()).hexdigest()[:16]
+        assert mod.SOURCE.name == f"{stem}.cu" and mod.SOURCE.exists()
+        assert path == _build.BUILD_DIR / f"lib{stem}_{digest}.so"
+        paths[stem] = path
+    assert paths["infonce"].name.split("_")[1] != \
+        paths["access"].name.split("_")[1]
+
+
+# n, E, M: the probes' own tile sizes, and a ragged shape (n not a multiple
+# of 128, E not of 8192 or of 4, M not of 64)
+ACCESS_SHAPES = [(4096, 16384, 128), (1000, 12345, 97)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", A.KERNELS)
+@pytest.mark.parametrize("n,e,m", ACCESS_SHAPES)
+def test_cuda_access_kernel_matches_plain(name, n, e, m):
+    _needs_card()
+    inp = P.make_inputs(n, e, m, 1, "cuda", seed=n + e)
+    kern, plain, args = P._calls(inp)[name]
+    before = A.launch_counts[name]
+    got, ref = kern(*args[0]), plain(*args[0])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert A.launch_counts[name] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_two_level_take_covers_several_chunks():
+    """A table of more than one shared-memory chunk (57344 entries)."""
+    _needs_card()
+    inp = P.make_inputs(150_001, 50_000, 1, 1, "cuda", seed=5)
+    idx = inp["idx"][0]
+    assert torch.equal(A.take_two_level(inp["tab2d"], idx),
+                       A.take_two_level_plain(inp["tab2d"], idx))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", A.KERNELS)
+def test_access_cpu_tensors_take_the_plain_version(name):
+    inp = P.make_inputs(1000, 777, 5, 1, "cpu", seed=3)
+    kern, plain, args = P._calls(inp)[name]
+    before = dict(A.launch_counts)
+    got = kern(*args[0])
+    assert got.dtype == torch.int32 and torch.equal(got, plain(*args[0]))
+    assert A.launch_counts == before
+
+
+@pytest.mark.parametrize("name", A.KERNELS)
+def test_access_wrappers_never_fall_back_off_the_cpu(name):
+    """A `meta` tensor never reaches the plain version: the wrapper
+    raises. So does a wrong shape."""
+    inp = P.make_inputs(1000, 777, 5, 1, "cpu", seed=3)
+    kern, _plain, args = P._calls(inp)[name]
+    moved = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                  for a in args[0])
+    with pytest.raises(ValueError):
+        kern(*moved)
+    mixed = (args[0][0].to("meta"),) + tuple(args[0][1:])
+    with pytest.raises(ValueError):
+        kern(*mixed)
+    bad = inp["idx2"][0] if name in A.KERNELS[:4] else inp["idx"][0]
+    with pytest.raises(ValueError):
+        if name == "scatter_min":
+            kern(bad, bad, 1000)
+        else:
+            kern(args[0][0], bad)
+
+
+def test_probe_entry_point_runs_on_the_cpu():
+    """The entry point end to end at a small shape; on the CPU it times
+    the plain versions with the host clock and says so."""
+    lines = []
+    res = P.run(1000, 4096, 2, device="cpu", emit=lines.append)
+    assert res["device"] == "cpu" and res["timer"] == "host clock"
+    assert set(res["kernels"]) == set(A.KERNELS)
+    for row in res["kernels"].values():
+        assert row["max_abs_err"] == 0 and row["launches"] == 0
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert any(line.startswith("A1 ") for line in lines)

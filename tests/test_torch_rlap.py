@@ -25,7 +25,7 @@ def _dense(g):
 
 
 def _approx(g, seed, t, **kw):
-    return approximate_cholesky(g, rng.key(seed), t, device="cpu", **kw)
+    return approximate_cholesky(g, rng.key(seed, device="cpu"), t, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("o_v", ["random", "degree", "coarsen"])
@@ -42,7 +42,7 @@ def test_output_symmetric_and_sized(o_v, o_n):
 
 
 def test_eliminates_requested_count():
-    out, removed, rounds = eliminate(_ba(100, 2, 3), rng.key(1), 60)
+    out, removed, rounds = eliminate(_ba(100, 2, 3), rng.key(1, device="cpu"), 60)
     assert removed == 60 and rounds >= 1
     assert int((G.degrees(out) > 0).sum()) == 40
 
@@ -54,7 +54,7 @@ def test_num_remove_zero_is_identity():
 
 
 def test_last_vertex_never_eliminated():
-    out, removed, _ = eliminate(_ba(30, 2, 1), rng.key(2), 30)
+    out, removed, _ = eliminate(_ba(30, 2, 1), rng.key(2, device="cpu"), 30)
     assert removed == 29
 
 
@@ -104,7 +104,7 @@ def test_ring_stays_a_ring(schedule):
     g = G.Graph.from_edges(np.concatenate([idx, (idx + 1) % n]),
                            np.concatenate([(idx + 1) % n, idx]), n,
                            device="cpu")
-    out, removed, _ = eliminate(g, rng.key(5), t, schedule=schedule)
+    out, removed, _ = eliminate(g, rng.key(5, device="cpu"), t, schedule=schedule)
     assert removed == t
     assert int(out.num_edges) == 2 * (n - t)
     assert bool((G.degrees(out)[G.degrees(out) > 0] == 2).all())
@@ -112,7 +112,7 @@ def test_ring_stays_a_ring(schedule):
 
 def test_eliminate_pair_equals_two_singles():
     g = _ba(300, 4, 4)
-    key = rng.key(9)
+    key = rng.key(9, device="cpu")
     views = eliminate_pair(g, key, 120, o_n="asc")
     for (gp, rm, rounds), kv in zip(views, rng.split(key)):
         ref, rmr, rr = eliminate(g, kv, 120, o_n="asc")
