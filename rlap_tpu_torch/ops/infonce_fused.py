@@ -4,13 +4,21 @@ Hopper, their plain PyTorch versions, and the autograd wiring.
 Counterpart of `rlap_tpu/ops/infonce_pallas.py`. The kernels
 (`rlap_tpu_torch/csrc/infonce.cu`) replace the Pallas TPU kernels
 `_fwd_kernel`, `_bwd_da_kernel` and `_bwd_db_kernel`; the source says what
-bounds them on the H100 and how they are laid out.
+bounds them on the H100 and how they are laid out. The forward and dA run
+on the tensor cores in three TF32 passes on split operands ("3xTF32"),
+which keeps float32 accuracy: through `wgmma` where f <= 128 and
+f % 4 == 0, through `mma.sync` at other widths; dB is float32 FMA.
+`tf32_round`, `tf32_truncate`, `matmul_3xtf32` and the two
+`*_3xtf32_plain` functions emulate that arithmetic in plain PyTorch, for
+tests: nothing else calls them.
 
 Each kernel wrapper (`infonce_fwd`, `infonce_bwd_da`, `infonce_bwd_db`)
 runs the plain version for a tensor on the CPU and launches the kernel for
 a CUDA tensor, or raises: there is no fallback on the card. Each launch
 adds one to `launch_counts[name]`, so a run can show that it went through
-the kernels.
+the kernels. The forward and dA keep a block's rows resident in shared
+memory, which bounds the width: f <= 1920, and a wider launch is refused
+with a CUDA error.
 
 The library is built from the repository's source at first use and loaded
 with ctypes, by `rlap_tpu_torch/ops/_build.py`.
@@ -84,23 +92,30 @@ def _check_shapes(a, b, *rows):
 # plain versions: row-blocked A.B^T/tau, logsumexp and the diagonal
 # ---------------------------------------------------------------------------
 
-def _sim_rows(a, b, i0: int, block: int, tau: float) -> torch.Tensor:
-    return (a[i0:i0 + block] @ b.T) * (1.0 / tau)
+def _matmul_t(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return p @ q.T
 
 
-def infonce_fwd_plain(a, b, tau: float, block: int = 1024):
+def _sim_rows(a, b, i0: int, block: int, tau: float,
+              matmul_t=_matmul_t) -> torch.Tensor:
+    return matmul_t(a[i0:i0 + block], b) * (1.0 / tau)
+
+
+def infonce_fwd_plain(a, b, tau: float, block: int = 1024,
+                      matmul_t=_matmul_t):
     """(out, lse): lse_i = logsumexp_j sim_ij, out_i = sim_ii - lse_i."""
     outs, lses = [], []
     for i0 in range(0, a.shape[0], block):
-        sim = _sim_rows(a, b, i0, block, tau)
+        sim = _sim_rows(a, b, i0, block, tau, matmul_t)
         lse = torch.logsumexp(sim, 1)
         outs.append(sim.diagonal(offset=i0) - lse)
         lses.append(lse)
     return torch.cat(outs), torch.cat(lses)
 
 
-def _coef_rows(a, b, lse, g, i0: int, block: int, tau: float):
-    sim = _sim_rows(a, b, i0, block, tau)
+def _coef_rows(a, b, lse, g, i0: int, block: int, tau: float,
+               matmul_t=_matmul_t):
+    sim = _sim_rows(a, b, i0, block, tau, matmul_t)
     coef = -torch.exp(sim - lse[i0:i0 + block, None])
     coef.diagonal(offset=i0).add_(1.0)
     return coef * (g[i0:i0 + block, None] * (1.0 / tau))
@@ -118,6 +133,56 @@ def infonce_bwd_db_plain(a, b, lse, g, tau: float, block: int = 1024):
     for i0 in range(0, a.shape[0], block):
         db += _coef_rows(a, b, lse, g, i0, block, tau).T @ a[i0:i0 + block]
     return db
+
+
+# ---------------------------------------------------------------------------
+# the forward and dA kernels' arithmetic in plain PyTorch, for tests
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero, by integer arithmetic on the bit pattern: what
+    `cvt.rna.tf32.f32` does. Infinities and NaNs pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """float32 cut to TF32's 10 mantissa bits: what the tensor cores read
+    of a float32 operand that was not rounded first."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p @ q.T as the kernels take it: each operand x is split into
+    hi = x rounded to TF32 and lo = x - hi as the tensor cores read it, and
+    the product is lo_p hi_q + hi_p lo_q + hi_p hi_q, summed in float32. A
+    product of two TF32 values is exact in float32, so this is the
+    `mma.sync` kernels' arithmetic up to the order of the sums (and to ties
+    in the rounding of hi, which they break to even). The `wgmma` kernels
+    cut hi and round lo instead, with the same bound
+    |x - hi - lo| <= 2^-21 |x|."""
+    p_hi, q_hi = tf32_round(p), tf32_round(q)
+    p_lo, q_lo = tf32_truncate(p - p_hi), tf32_truncate(q - q_hi)
+    return p_lo @ q_hi.T + p_hi @ q_lo.T + p_hi @ q_hi.T
+
+
+def infonce_fwd_3xtf32_plain(a, b, tau: float, block: int = 1024):
+    """`infonce_fwd_plain` with the 3xTF32 product."""
+    return infonce_fwd_plain(a, b, tau, block, matmul_3xtf32)
+
+
+def infonce_bwd_da_3xtf32_plain(a, b, lse, g, tau: float, block: int = 128):
+    """`infonce_bwd_da_plain` with the 3xTF32 product, as the kernel sums
+    it: a block of rows takes sum_j coef_ij (B_j - r) with r the first row
+    of B that the block owns. The coefficients of a row sum to 0 when lse
+    is the row's logsumexp, so this is dA, and no term is larger than the
+    rows' differences."""
+    return torch.cat([
+        matmul_3xtf32(_coef_rows(a, b, lse, g, i0, block, tau, matmul_3xtf32),
+                      (b - b[i0]).T)
+        for i0 in range(0, a.shape[0], block)])
 
 
 # ---------------------------------------------------------------------------

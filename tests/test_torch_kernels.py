@@ -6,8 +6,9 @@ machine with a card and no JAX it runs alone:
 
 The `cuda` tests skip without a card (the kernels have no CPU mode).
 InfoNCE values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4 /
-atol 1e-6, in float32 with TF32 off. The access probes are int32 and must
-be bit-equal.
+atol 1e-6, in float32 with TF32 off; on alike rows the forward and dA are
+held against float64, within 1e-4 of the largest entry. The access probes
+are int32 and must be bit-equal.
 """
 
 import numpy as np
@@ -36,7 +37,11 @@ def _inputs(n, f, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,f,tau", [(1000, 100, 0.2), (2048, 128, 0.5),
-                                     (70, 300, 0.2)])
+                                     (70, 300, 0.2), (129, 100, 0.2),
+                                     (4097, 72, 0.2), (500, 50, 0.5),
+                                     (333, 1000, 0.2), (7, 4, 0.5),
+                                     (33, 8, 0.2), (65, 124, 0.5),
+                                     (3000, 256, 0.2)])
 def test_cuda_kernels_match_plain(n, f, tau):
     _needs_card()
     a, b, _m, g = _inputs(n, f, n + f, "cuda")
@@ -53,6 +58,70 @@ def test_cuda_kernels_match_plain(n, f, tau):
                                rtol=1e-4, atol=1e-6)
     torch.cuda.synchronize()
     assert all(K.launch_counts[k] == before[k] + 1 for k in K.KERNELS)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_rows_that_are_not_16_byte_aligned():
+    """A contiguous view one float into its storage: the 16-byte copies of
+    the tensor-core kernels do not apply, and the 4-byte path must give the
+    same values."""
+    _needs_card()
+    n, f, tau = 300, 64, 0.2
+    a, b, _m, g = _inputs(n, f, 7, "cuda")
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, device="cuda")
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    out, lse = K.infonce_fwd(a, b, tau)
+    out_s, lse_s = K.infonce_fwd(shifted(a), shifted(b), tau)
+    torch.testing.assert_close(out_s, out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse_s, lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        K.infonce_bwd_da(shifted(a), shifted(b), lse, g, tau),
+        K.infonce_bwd_da(a, b, lse, g, tau), rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [0.03, 0.003])
+def test_cuda_fwd_and_da_match_float64_on_alike_rows(spread):
+    """Rows that share a direction, as a fresh encoder's embeddings do: dA
+    cancels nearly equal terms, so it is held against float64, within 1e-4
+    of the largest entry."""
+    _needs_card()
+    n, f, tau = 5000, 128, 0.2
+    r = np.random.default_rng(11)
+    c = r.normal(size=(1, f))
+    a, b = (K.l2norm(torch.tensor(c + spread * r.normal(size=(n, f)),
+                                  dtype=torch.float32)).cuda().contiguous()
+            for _ in range(2))
+    g = torch.full((n,), -1.0 / n, device="cuda")
+    out64, lse64 = K.infonce_fwd_plain(a.double(), b.double(), tau)
+    da64 = K.infonce_bwd_da_plain(a.double(), b.double(), lse64, g.double(),
+                                  tau)
+    out, _lse = K.infonce_fwd(a, b, tau)
+    da = K.infonce_bwd_da(a, b, lse64.float().contiguous(), g, tau)
+    torch.cuda.synchronize()
+    for got, ref in ((out, out64), (da, da64)):
+        err = (got.double() - ref).abs().max() / ref.abs().max()
+        assert float(err) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_rows_too_wide_for_shared_memory():
+    """The forward and dA keep a block's rows resident in shared memory:
+    f > 1920 does not fit, and the launch is refused, not run some other
+    way."""
+    _needs_card()
+    a, b, _m, g = _inputs(40, 2000, 1, "cuda")
+    with pytest.raises(RuntimeError):
+        K.infonce_fwd(a, b, 0.2)
+    with pytest.raises(RuntimeError):
+        K.infonce_bwd_da(a, b, g, g, 0.2)
 
 
 @pytest.mark.cuda
@@ -90,6 +159,16 @@ def test_wrappers_never_fall_back_off_the_cpu():
         K.infonce_bwd_da(a, b, g.to("meta"), g, 0.2)
     with pytest.raises(ValueError):
         K.infonce_fwd(a, b[:10], 0.2)
+
+
+def test_timing_tool_needs_a_card(capsys):
+    """`time_infonce` times kernels, so without a card it says so and
+    returns 1; it never times the plain versions instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from rlap_tpu_torch.bench import time_infonce
+    assert time_infonce.main(["100"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_library_is_named_by_source_hash():
