@@ -9,8 +9,10 @@
 2. Builds both kernel libraries with nvcc, side by side: the InfoNCE
    kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the eight access probes
    (`rlap_tpu_torch/csrc/access.cu`), and prints ptxas's resource lines
-   (registers, spills, static shared memory) and the dynamic shared
-   memory of the tensor-core kernels.
+   (registers, spills, static shared memory) and remarks, the dynamic
+   shared memory of the tensor-core kernels, and how many `wgmma`
+   (HGMMA) and full waits behind them (WARPGROUP.DEPBAR) the machine code
+   of each `wgmma` kernel holds.
 3. Holds each InfoNCE kernel against its plain PyTorch version: n=2048
    f=128 and ragged n=1000 f=100, masked and unmasked, tau 0.2 and 0.5;
    the ragged shapes n=70 f=300, n=129 f=100, n=4097 f=72, n=500 f=50
@@ -20,11 +22,11 @@
    and the forward beside the yardstick F.cross_entropy(a @ b.T / tau,
    arange(n)) at n=16384, which it must beat. On alike rows (spread 0.03
    and 0.003), and for one training step on a small graph, holds the
-   kernels against float64 (error within 1e-4 of the largest entry), with
-   the error of the plain float32 versions and of the plain emulation of
-   the tensor-core kernels' 3xTF32 arithmetic beside. At spread 0.003 the
-   forward and dA are held; dB, which still sums as the plain version
-   does, is printed.
+   kernels against float64, relative to the largest entry: within 1e-4,
+   except dB at spread 0.003, within 2e-4 (the rounding of its float32
+   coefficients reaches it through its column sums), with the error of the
+   plain float32 versions and of the plain emulation of the kernels' 3xTF32
+   arithmetic beside.
 4. Probe phase. Holds the eight access kernels bit-equal against their
    plain versions at a ragged shape (n=1000, E=12345, M=97 index tiles),
    one launch counted per call; times `take` and `scatter_min` on the
@@ -72,6 +74,7 @@ from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.data.synthetic import barabasi_albert
 from rlap_tpu_torch.models.grace import GraceTrainer
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
+from rlap_tpu_torch.ops import _build
 from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
 from rlap_tpu_torch.ops.rlap import (_entry, _select, approximate_cholesky,
@@ -201,14 +204,14 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def check_against_float64(n: int, f: int, spread: float, seed: int,
-                          held=K.KERNELS) -> None:
+                          bars: dict) -> None:
     """Rows alike (a shared direction plus `spread` noise), as a fresh
     encoder's embeddings are: the gradients cancel nearly equal terms, so
-    an element-wise bar between two float32 sums is the wrong test. The
-    `held` kernels must be within 1e-4 of the largest entry of a float64
+    an element-wise bar between two float32 sums is the wrong test. Each
+    kernel must be within `bars[name]` of the largest entry of a float64
     result. Beside each kernel's error: the plain float32 version's, and
-    for the tensor-core kernels that of the plain emulation of their
-    arithmetic, which tells a loss of precision from a fault."""
+    that of the plain emulation of the kernel's arithmetic, which tells a
+    loss of precision from a fault."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     c = torch.randn(1, f, generator=gen, device="cuda")
     a, b = (K.l2norm(c + spread * torch.randn(n, f, generator=gen,
@@ -232,15 +235,16 @@ def check_against_float64(n: int, f: int, spread: float, seed: int,
     torch.cuda.synchronize()
     emulated = {
         "infonce_fwd": K.infonce_fwd_3xtf32_plain(a, b, 0.2)[0],
-        "infonce_bwd_da": K.infonce_bwd_da_3xtf32_plain(a, b, lse, g, 0.2)}
+        "infonce_bwd_da": K.infonce_bwd_da_3xtf32_plain(a, b, lse, g, 0.2),
+        "infonce_bwd_db": K.infonce_bwd_db_3xtf32_plain(a, b, lse, g, 0.2)}
     report = {}
     for name, (kern, plain) in got.items():
         report[name] = {"kernel": rel_err(kern, refs[name]),
-                        "plain_f32": rel_err(plain, refs[name])}
-        if name in emulated:
-            report[name]["emulation_3xtf32"] = rel_err(emulated[name],
-                                                       refs[name])
-        require(name not in held or report[name]["kernel"] <= 1e-4,
+                        "plain_f32": rel_err(plain, refs[name]),
+                        "emulation_3xtf32": rel_err(emulated[name],
+                                                    refs[name]),
+                        "bar": bars[name]}
+        require(report[name]["kernel"] <= bars[name],
                 f"{name} against float64 at n={n} spread={spread}: "
                 f"{report[name]}")
     print(f"against float64, n={n} spread={spread}, error / max entry: "
@@ -260,11 +264,14 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
         check_case(n, f, True, tau, errs, seed)
     check_autograd(1000, 100, 0.2, 99)
     check_case(n_main, f_main, False, 0.2, errs, 100)
-    check_against_float64(20000, f_main, 0.03, 101)
-    # rows nearly equal: the plain float32 sums lose the bar here, and so
-    # does dB, which still sums coef_ij A_i as they do; it is printed
+    check_against_float64(20000, f_main, 0.03, 101,
+                          bars={name: 1e-4 for name in K.KERNELS})
+    # rows nearly equal: the plain float32 sums lose 1e-4 here, and dB's
+    # column sums carry the rounding of its float32 coefficients into the
+    # result, which leaves it less room: it is held to 2e-4
     check_against_float64(20000, f_main, 0.003, 102,
-                          held=("infonce_fwd", "infonce_bwd_da"))
+                          bars={"infonce_fwd": 1e-4, "infonce_bwd_da": 1e-4,
+                                "infonce_bwd_db": 2e-4})
     print(f"kernel checks passed; max abs err {json.dumps(errs)}",
           flush=True)
 
@@ -545,15 +552,19 @@ def main(argv=None) -> int:
     for _lib, log in built:
         for line in log.splitlines():
             if ("Used" in line or "Compiling entry" in line
-                    or "spill" in line):
+                    or "spill" in line or "C75" in line):
                 print(f"  ptxas: {line.strip()}")
     print("  dynamic shared memory a block at f <= 128: infonce_fwd (wgmma) "
           "197632 bytes (4 stages and 2 lo planes of 64 x 128 floats), "
-          "infonce_bwd_da (wgmma) 230400 bytes (64 rows of A and their lo "
-          "plane, 4 stages, 2 lo planes and 2 pairs of transposed planes of "
-          "32 x 128 floats); the mma.sync kernels of other widths 168960 "
-          "bytes (128 resident rows and 3 stages of 64 rows, 132 floats "
-          "each)", flush=True)
+          "infonce_bwd_da and infonce_bwd_db (wgmma) 230400 bytes each (64 "
+          "resident rows and their lo plane, 4 stages, 2 lo planes and 2 "
+          "pairs of transposed planes of 32 x 128 floats); the mma.sync "
+          "kernels of other widths 168960 bytes (128 resident rows and 3 "
+          "stages of 64 rows, 132 floats each)", flush=True)
+    sass = _build.sass_counts(built[0][0], ("HGMMA", "WARPGROUP.DEPBAR"))
+    for name, counts in sass.items():
+        if counts["HGMMA"]:
+            print(f"  sass: {name} {json.dumps(counts)}", flush=True)
 
     f = 128
     rows = kernel_phase(args.n, f)

@@ -1,9 +1,14 @@
 // Fused identity-positive InfoNCE on Hopper: forward, dA and dB.
 //
-// Replaces the three Pallas TPU kernels of rlap_tpu/ops/infonce_pallas.py:
-//   infonce_fwd_kernel    <- _fwd_kernel     (:37-67,   launched :139-156)
-//   infonce_bwd_da_kernel <- _bwd_da_kernel  (:86-101,  launched :176-190)
-//   infonce_bwd_db_kernel <- _bwd_db_kernel  (:104-121, launched :192-206)
+// Replaces the three Pallas TPU kernels of rlap_tpu/ops/infonce_pallas.py
+// (the kernels named first take f <= 128 with f % 4 == 0 and 16-byte
+// aligned rows, the others every other width up to 1920):
+//   infonce_fwd_wgmma_kernel, infonce_fwd_kernel
+//       <- _fwd_kernel     (:37-67,   launched :139-156)
+//   infonce_bwd_wgmma_kernel<false>, infonce_bwd_kernel<WARPS, false>
+//       <- _bwd_da_kernel  (:86-101,  launched :176-190)
+//   infonce_bwd_wgmma_kernel<true>, infonce_bwd_kernel<WARPS, true>
+//       <- _bwd_db_kernel  (:104-121, launched :192-206)
 //
 // A and B are L2-normalised float32 [n, f] row-major. With
 // sim_ij = A_i . B_j / tau:
@@ -18,9 +23,9 @@
 // O(n f). No atomics anywhere: a block owns its output rows, so all three
 // kernels are deterministic.
 //
-// ---- 3xTF32: the arithmetic of the forward and of dA
+// ---- 3xTF32: the arithmetic of all of them
 //
-// Both run their products on the tensor cores in TF32. One TF32 pass keeps
+// They run their products on the tensor cores in TF32. One TF32 pass keeps
 // 10 mantissa bits, about three decimal digits, and would break the
 // tolerances these kernels are held to (values rtol 1e-5, gradients rtol
 // 1e-4, 1e-4 of the largest entry against float64 on alike rows). So every
@@ -61,14 +66,15 @@
 // with max, sum and positive in registers; the four lanes of a quad are
 // merged by shuffles once, after the last tile.
 //
-// ---- infonce_bwd_da_wgmma_kernel: dA at f <= 128, f % 4 == 0
+// ---- infonce_bwd_wgmma_kernel<DB>: dA (DB false) and dB (DB true) at
+// ---- f <= 128, f % 4 == 0
 //
 // Both products on wgmma, by a warpgroup that issues them and one that
 // feeds it; its own note, at the kernel, says how. What is summed is the
 // same as in the mma.sync kernel below.
 //
-// ---- infonce_fwd_kernel and infonce_bwd_da_kernel: the forward and dA at
-// ---- other widths, mma.sync
+// ---- infonce_fwd_kernel and infonce_bwd_kernel<WARPS, DB>: the forward,
+// ---- dA and dB at other widths, mma.sync
 //
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, with both operands
 // split in registers (Veltkamp's split: hi rounded to TF32 by three
@@ -81,9 +87,13 @@
 // stay for the widths wgmma's layouts do not take here (f > 128, or rows
 // that are not 16-byte aligned).
 //
-// Tiles and shared memory. A block of 8 warps owns 128 rows of A (16 a
+// Write P for the rows a block owns and Q for the rows its tiles stream:
+// A and B for the forward and dA, B and A for dB (the anchor index i,
+// which carries lse_i and g_i, is then the tile's column).
+//
+// Tiles and shared memory. A block of 8 warps owns 128 rows of P (16 a
 // warp) and keeps them in shared memory for its whole life; tiles of 64
-// rows of B stream through a ring of 3 stages filled by cp.async, 16 bytes
+// rows of Q stream through a ring of 3 stages filled by cp.async, 16 bytes
 // a thread (4 bytes when f % 4 != 0 or a pointer is not 16-byte aligned),
 // with one __syncthreads per stage: the copy of tile j + 2 is in flight
 // while tile j is multiplied. Rows, columns and features past the matrix
@@ -92,7 +102,7 @@
 // 128 x 132 x 4 = 67,584 bytes of resident rows and 3 x 64 x 132 x 4 =
 // 101,376 bytes of ring: 168,960 bytes of dynamic shared memory, one block
 // an SM. For f > 128 the features are cut into chunks of 128: all chunks
-// of the block's rows stay resident, a ring stage holds one chunk of a B
+// of the block's rows stay resident, a ring stage holds one chunk of a Q
 // tile, and the block owns fewer rows so that it fits: 64 rows (4 warps)
 // up to f = 384, 32 up to 896, 16 up to 1920. A wider f does not fit and
 // the launcher returns cudaErrorInvalidValue.
@@ -106,11 +116,11 @@
 // groups of four banks: no conflict, and a quarter of the load
 // instructions of the element-wise fragment layout.
 //
-// dA: the coefficient tile goes from the accumulator straight to the A
-// operand of the second product, dA_tile += coef . B_tile, without
-// touching shared memory. The accumulator layout (columns 2 t, 2 t + 1)
-// is not the A fragment's (k = t, t + 4), but the column index is the
-// summation index of the second product: its B fragment reads rows
+// The gradients: the coefficient tile goes from the accumulator straight
+// to the A operand of the second product, grad_tile += coef . Q_tile,
+// without touching shared memory. The accumulator layout (columns 2 t,
+// 2 t + 1) is not the A fragment's (k = t, t + 4), but the column index is
+// the summation index of the second product: its B fragment reads rows
 // 8 j + 2 t and 8 j + 2 t + 1 of the same float32 tile, and nothing moves.
 // Along the features the lane reads 4 g .. 4 g + 3 of each block of 32
 // with one 128-bit load a row, which serves four n-tiles (n = g stands
@@ -119,31 +129,35 @@
 // (grid.y over feature chunks, and the chunk order of the similarity ends
 // with the block's own, so that its stage is at hand).
 //
-// dA: what is summed. On alike rows (a freshly initialised encoder) the
-// sum cancels: sum_j coef_ij is 0 when lse_i is the row's logsumexp, and
-// all B_j are nearly one vector. The tensor cores add in float32 with
-// truncation, not round-to-nearest, so (a) each tile's product starts
-// from a zero accumulator and is added to the running total with a
-// float32 add (the two-level sum: rounding grows with the number of
-// tiles, not of terms, and no chain of truncations is longer than a
-// tile's), and (b) the kernel sums coef_ij (B_j - r) with r the first row
-// of B that the block owns. That equals sum_j coef_ij B_j because the
-// coefficients of a row sum to 0, and every term is then of the size of
-// the rows' differences, not of the rows: what is left of the float32
-// rounding, of lse_i's own rounding and of the accumulators' truncation
-// scales with the result, not with what cancels.
-//
-// ---- infonce_bwd_db_kernel: the first, SIMT design
-//
-// dB keeps the first design: float32 FMA outside the tensor cores, 64 x 64
-// tiles, 256 threads each holding a 4 x 8 register micro-tile, operands
-// staged through shared memory in chunks of 16 features, the coefficient
-// tile passed through shared memory, the same two-level sum. It owns 64
-// rows of B and loops over row tiles of A, reading lse_i and g_i per
-// tile. It is the next to move to the tensor cores, with the anchor on
-// the tile's columns: infonce_bwd_da_wgmma_kernel is the model (and
-// s_tile_mma, coef_mma and the ring are device functions for the widths
-// that stay on mma.sync).
+// The gradients: what is summed. Let r be the row of Q at the block's
+// first own index. On alike rows (a freshly initialised encoder) the sums
+// cancel nearly equal terms, and the tensor cores add in float32 with
+// truncation, not round-to-nearest. So:
+// (a) The similarity of a tile is taken against Q - r, and t = P_row . r
+//     (in float64, kept as float32 hi + lo) is added back before the
+//     exponent. A similarity near 1 summed by truncating adds comes out
+//     low by about the same amount for every pair, which scales every
+//     coefficient alike: dA's sum absorbs that (see (c)), dB's does not,
+//     and on rows alike to 0.003 it would cost dB more than the 2e-4 of
+//     its largest entry that it is held to (tests/test_torch_infonce_3xtf32.py
+//     shows it in an emulation of the truncating adds). Against Q - r the
+//     similarity is of the size of the rows' differences, and so is what
+//     the truncation takes. The forward needs no shift: its lse comes from
+//     the same similarities, and a common error cancels in s_ii - lse_i.
+// (b) Each tile's second product starts from a zero accumulator and is
+//     added to the running total with a float32 add (the two-level sum):
+//     rounding grows with the number of tiles, not of terms, and no chain
+//     of truncations is longer than a tile's.
+// (c) The second product sums coef_ij (Q - r), every term of the size of
+//     the rows' differences. dA: the coefficients of a row i sum to 0 when
+//     lse_i is its logsumexp, so the sum is dA_i, and what is left of the
+//     float32 rounding, of lse_i's own rounding and of the accumulators'
+//     truncation scales with the result. dB: the coefficients of a column
+//     j sum to c_j != 0 (the softmax runs over j for each i), so the sum
+//     is dB_j - r c_j, and the kernel adds r c_j back at the end. c_j is
+//     summed in float32 within a tile and in float64 across tiles: a
+//     float32 running total of c_j loses more at n = 20000 than the shift
+//     saves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -155,7 +169,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // ===========================================================================
-// forward and dA: tensor cores, 3xTF32 through mma.sync
+// the forward, dA and dB at other widths: tensor cores, 3xTF32 through
+// mma.sync (the copies and splits serve the wgmma kernels too)
 // ===========================================================================
 
 constexpr int TN = 64;           // rows of B in a ring stage (tile columns)
@@ -261,12 +276,16 @@ __device__ __forceinline__ void unpack8(const float* p, float (&v)[8]) {
   v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
-// s[j] += P_w Q_j^T over kf features, in 3xTF32: P_w are the warp's 16
-// rows (pw, stride LD), Q_j rows 8 j .. 8 j + 7 of the stage qs. s[j][e]
-// is row g + 8 (e / 2), column 8 j + 2 t + e % 2 of the 16 x 64 tile.
+// s[j] += P_w (Q_j - r)^T over kf features, in 3xTF32: P_w are the warp's
+// 16 rows (pw, stride LD), Q_j rows 8 j .. 8 j + 7 of the stage qs, and r
+// the row at rq in device memory (rf of its features lie in the chunk; the
+// rest count as 0) when SHIFT, else 0. s[j][e] is row g + 8 (e / 2),
+// column 8 j + 2 t + e % 2 of the 16 x 64 tile.
+template <bool SHIFT>
 __device__ __forceinline__ void s_tile_mma(float (&s)[8][4],
                                            const float* pw, const float* qs,
-                                           int kf, int g, int t) {
+                                           const float* __restrict__ rq,
+                                           int rf, int kf, int g, int t) {
   const float* pa = pw + g * LD + 8 * t;
   const float* qa = qs + g * LD + 8 * t;
 #pragma unroll 1
@@ -284,12 +303,25 @@ __device__ __forceinline__ void s_tile_mma(float (&s)[8][4],
         split_tf32(y[2 * ks + 1], ah[ks][3], al[ks][3]);
       }
     }
+    float r8[8];  // r at this lane's features of the block of 32
+    if constexpr (SHIFT) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = kb + 8 * t + e;
+        r8[e] = k < rf ? __ldg(rq + k) : 0.f;
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float z[4][8];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+      for (int q = 0; q < 4; ++q) {
         unpack8(qa + (4 * half + q) * 8 * LD + kb, z[q]);
+        if constexpr (SHIFT) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) z[q][e] -= r8[e];
+        }
+      }
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         uint32_t bh[4][2], bl[4][2];
@@ -368,14 +400,14 @@ __device__ __forceinline__ void coef_mma(float (&acc)[16][4],
   }
 }
 
-// The main loop of both kernels. The block's rows [r0, r0 + 16 WARPS) of P
-// are made resident, all chunks; then for each tile of 64 rows of Q and
-// each feature chunk, in an order that ends with chunk `last`, the stage
-// is awaited, the copy two steps ahead is started, and the warp's
-// 16 x 64 similarity tile is advanced. `tile_done(s, c0, stage)` runs
-// once a tile's similarities are complete, with the stage that holds
-// chunk `last` of its rows.
-template <int WARPS, typename TileDone>
+// The main loop of the mma.sync kernels. The block's rows [r0, r0 + 16
+// WARPS) of P are made resident, all chunks; then for each tile of 64 rows
+// of Q and each feature chunk, in an order that ends with chunk `last`,
+// the stage is awaited, the copy two steps ahead is started, and the
+// warp's 16 x 64 similarity tile is advanced, against Q - Q[r0] when
+// SHIFT. `tile_done(s, c0, stage)` runs once a tile's similarities are
+// complete, with the stage that holds chunk `last` of its rows.
+template <int WARPS, bool SHIFT, typename TileDone>
 __device__ __forceinline__ void for_each_tile(const float* __restrict__ P,
                                               const float* __restrict__ Q,
                                               int n, int f, bool vec,
@@ -421,8 +453,9 @@ __device__ __forceinline__ void for_each_tile(const float* __restrict__ P,
     }
     const int c = (last + 1 + i) % nch;
     const float* stage = ring + (step % NST) * STAGE;
-    s_tile_mma(sacc, ps + (c * BM + 16 * warp) * LD, stage,
-               chunk_width(c, f), g, t);
+    s_tile_mma<SHIFT>(sacc, ps + (c * BM + 16 * warp) * LD, stage,
+                      Q + (int64_t)r0 * f + c * KC, f - c * KC,
+                      chunk_width(c, f), g, t);
     if (++i == nch) {
       tile_done(sacc, tile * TN, stage);
       i = 0, ++tile;
@@ -511,10 +544,11 @@ infonce_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int g = lane / 4, t = lane % 4;
   const int row0 = blockIdx.x * 16 * WARPS + 16 * warp;  // the warp's rows
   RowSoftmax rows;
-  for_each_tile<WARPS>(A, B, n, f, vec, (f + KC - 1) / KC - 1, smem,
-                       [&](float (&s)[8][4], int c0, const float*) {
-                         rows.add_tile(s, c0, row0, g, t, n, inv_tau);
-                       });
+  for_each_tile<WARPS, false>(
+      A, B, n, f, vec, (f + KC - 1) / KC - 1, smem,
+      [&](float (&s)[8][4], int c0, const float*) {
+        rows.add_tile(s, c0, row0, g, t, n, inv_tau);
+      });
   rows.store(out, lse, row0, g, t, n);
 }
 
@@ -762,13 +796,132 @@ infonce_fwd_wgmma_kernel(const float* __restrict__ A,
   rows.store(out, lse, row0, g, t, n);
 }
 
-template <int WARPS>
+// ---------------------------------------------------------------------------
+// dA and dB: what both gradient kernels share
+// ---------------------------------------------------------------------------
+
+// t = P[row] . r in float64 over the f features, as float32 hi + lo (0
+// for row >= n). The four lanes of a quad hold the same row and split its
+// features.
+__device__ __forceinline__ void dot_ref(const float* __restrict__ P,
+                                        const float* __restrict__ rq,
+                                        int row, int n, int f, int t,
+                                        float& hi, float& lo) {
+  double d = 0.0;
+  if (row < n) {
+    const float* p = P + (int64_t)row * f;
+    for (int k = t; k < f; k += 4) d += (double)p[k] * (double)rq[k];
+  }
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  hi = static_cast<float>(d);
+  lo = static_cast<float>(d - (double)hi);
+}
+
+// lse_i in base 2 and g_i / tau of the anchors i of a lane's
+// coefficients, 0 past n. dA: the lane's two rows, read once. dB: the
+// tile's columns c0 + 8 j + 2 t + u, 2 J of them, read per tile.
+template <int J, bool DB>
+struct Anchors {
+  float lse2[DB ? J : 1][2], gs[DB ? J : 1][2];
+
+  __device__ __forceinline__ void read(const float* __restrict__ lse,
+                                       const float* __restrict__ gout, int i,
+                                       int n, float inv_tau, int j, int u) {
+    lse2[j][u] = i < n ? lse[i] * LOG2E : 0.f;
+    gs[j][u] = i < n ? gout[i] * inv_tau : 0.f;
+  }
+  __device__ __forceinline__ void rows(const float* __restrict__ lse,
+                                       const float* __restrict__ gout,
+                                       int row, int n, float inv_tau) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) read(lse, gout, row + 8 * h, n, inv_tau, 0, h);
+  }
+  __device__ __forceinline__ void cols(const float* __restrict__ lse,
+                                       const float* __restrict__ gout,
+                                       int c0, int t, int n, float inv_tau) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        read(lse, gout, c0 + 8 * j + 2 * t + u, n, inv_tau, j, u);
+  }
+  // of the coefficient in row g + 8 (e / 2), column 8 j + 2 t + e % 2
+  __device__ __forceinline__ float l2(int j, int e) const {
+    return lse2[DB ? j : 0][DB ? (e & 1) : (e >> 1)];
+  }
+  __device__ __forceinline__ float gt(int j, int e) const {
+    return gs[DB ? j : 0][DB ? (e & 1) : (e >> 1)];
+  }
+};
+
+// A tile's coefficients, in place of its shifted similarities: s[j][e] is
+// row row0 + g + 8 (e / 2) of P, column c0 + 8 j + 2 t + e % 2 of the tile
+// (8 J columns), and P_row . r = thi + tlo is added back first (see "what
+// is summed"). dB also adds the lane's coefficients of each of its rows to
+// csum: float32 within the tile, float64 across tiles.
+template <int J, bool DB>
+__device__ __forceinline__ void tile_coef(float (&s)[J][4],
+                                          const Anchors<J, DB>& an,
+                                          const float (&thi)[2],
+                                          const float (&tlo)[2], int c0,
+                                          int row0, int g, int t, int n,
+                                          float scale2, double (&csum)[2]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = (s[j][e] + tlo[e >> 1]) + thi[e >> 1];
+      s[j][e] = -exp2f(fmaf(x, scale2, -an.l2(j, e))) * an.gt(j, e);
+    }
+  if (c0 < row0 + 16 && c0 + 8 * J > row0) {  // the diagonal crosses
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c0 + 8 * j + 2 * t + (e & 1) == row0 + g + 8 * (e >> 1))
+          s[j][e] += an.gt(j, e);
+  }
+  // rows past n have g = 0 in dA and are not written in dB; dB's columns
+  // past n have g = 0, dA's are set to 0 here
+  if (!DB && c0 + 8 * J > n) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = 0.f;
+  }
+  if (DB) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) part += s[j][2 * h] + s[j][2 * h + 1];
+      csum[h] += part;
+    }
+  }
+}
+
+// csum of the lane's rows over the four lanes of its quad.
+__device__ __forceinline__ void quad_sum(double (&csum)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 1);
+    csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 2);
+  }
+}
+
+// dA (DB false) or dB (DB true) at other widths, on mma.sync: grad = dA or
+// dB, P and Q as above, r = Q[r0] with r0 the block's first own row.
+template <int WARPS, bool DB>
 __global__ void __launch_bounds__(32 * WARPS, 1)
-infonce_bwd_da_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ gout, float* __restrict__ dA,
-                      int n, int f, float inv_tau, bool vec) {
+infonce_bwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ gout, float* __restrict__ grad,
+                   int n, int f, float inv_tau, bool vec) {
   extern __shared__ __align__(16) float smem[];
+  const float* __restrict__ P = DB ? B : A;
+  const float* __restrict__ Q = DB ? A : B;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = blockIdx.x * 16 * WARPS;
@@ -776,70 +929,56 @@ infonce_bwd_da_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int chunk = blockIdx.y, fo0 = chunk * KC;
   const int kfo = chunk_width(chunk, f);
   const float scale2 = inv_tau * LOG2E;
+  const float* __restrict__ rq = Q + (int64_t)r0 * f;
 
-  float lse2[2], gs[2];  // rows row0 + g and row0 + g + 8
+  Anchors<8, DB> an;
+  if constexpr (!DB) an.rows(lse, gout, row0 + g, n, inv_tau);
+  float thi[2], tlo[2];  // P_row . r of rows row0 + g and row0 + g + 8
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    lse2[h] = row < n ? lse[row] * LOG2E : 0.f;
-    gs[h] = row < n ? gout[row] * inv_tau : 0.f;
-  }
-  float ref[4][4];  // the block's first row of B, at this lane's features
+  for (int h = 0; h < 2; ++h)
+    dot_ref(P, rq, row0 + g + 8 * h, n, f, t, thi[h], tlo[h]);
+  float ref[4][4];  // r at this lane's features of the second product
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int k = fo0 + 32 * m + 4 * g + q;
-      ref[m][q] = k < f ? B[(int64_t)r0 * f + k] : 0.f;
+      ref[m][q] = k < f ? rq[k] : 0.f;
     }
   float acc[16][4];
 #pragma unroll
   for (int i = 0; i < 16; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  double csum[2] = {0.0, 0.0};
 
-  for_each_tile<WARPS>(
-      A, B, n, f, vec, chunk, smem,
+  for_each_tile<WARPS, true>(
+      P, Q, n, f, vec, chunk, smem,
       [&](float (&s)[8][4], int c0, const float* stage) {
-        // rows past n have gs = 0; columns past n are set to 0 below
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[j][e] = -exp2f(fmaf(s[j][e], scale2, -lse2[e >> 1])) *
-                      gs[e >> 1];
-        if (c0 < row0 + 16 && c0 + TN > row0) {  // the diagonal crosses
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (c0 + 8 * j + 2 * t + (e & 1) == row0 + g + 8 * (e >> 1))
-                s[j][e] += gs[e >> 1];
-        }
-        if (c0 + TN > n) {  // the ragged last tile
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (c0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = 0.f;
-        }
+        if constexpr (DB) an.cols(lse, gout, c0, t, n, inv_tau);
+        tile_coef<8, DB>(s, an, thi, tlo, c0, row0, g, t, n, scale2, csum);
         coef_mma(acc, s, stage, ref, kfo, g, t);
       });
 
+  if (DB) quad_sum(csum);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
     if (row >= n) continue;
-    float* dst = dA + (int64_t)row * f + fo0 + 8 * t;
+    float* dst = grad + (int64_t)row * f + fo0 + 8 * t;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int k = 32 * m + 4 * half;  // + 8 t + q
-        const float v[4] = {acc[4 * m][2 * h + half],
-                            acc[4 * m + 1][2 * h + half],
-                            acc[4 * m + 2][2 * h + half],
-                            acc[4 * m + 3][2 * h + half]};
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[q] = acc[4 * m + q][2 * h + half];
+          const int kk = fo0 + 8 * t + k + q;
+          if (DB && kk < f)  // dB_j = the sum + r c_j
+            v[q] = static_cast<float>(v[q] + (double)rq[kk] * csum[h]);
+        }
         if (vec) {
           if (fo0 + 8 * t + k < f)
             *reinterpret_cast<float4*>(dst + k) =
@@ -854,42 +993,49 @@ infonce_bwd_da_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // ---------------------------------------------------------------------------
-// dA at f <= 128, f % 4 == 0: wgmma
+// dA and dB at f <= 128, f % 4 == 0: wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int DA_ROWS = 64;      // rows of A a block owns: one warpgroup
-constexpr int DA_THREADS = 256;  // a warpgroup that multiplies, one that feeds
-constexpr int DA_TN = 32;        // rows of B in a tile
-constexpr int DA_RING = 4;       // stages of B tiles
-constexpr int DA_APANEL = DA_ROWS * 32;  // floats in a panel of A's rows
-constexpr int DA_BPANEL = DA_TN * 32;    // floats in a panel of a stage
-constexpr int DA_STAGE = 4 * DA_BPANEL;  // 16 KB, also a lo or V^T plane
-// A hi and lo, the ring, two lo planes, two pairs of V^T planes
-constexpr int DA_SMEM = sizeof(float) * (2 * 4 * DA_APANEL +
-                                         (DA_RING + 2 + 4) * DA_STAGE) + 1024;
+constexpr int BWD_ROWS = 64;      // rows of P a block owns: one warpgroup
+constexpr int BWD_THREADS = 256;  // a warpgroup that multiplies, one that feeds
+constexpr int BWD_TN = 32;        // rows of Q in a tile
+constexpr int BWD_RING = 4;       // stages of Q tiles
+constexpr int BWD_PPANEL = BWD_ROWS * 32;  // floats in a panel of P's rows
+constexpr int BWD_QPANEL = BWD_TN * 32;    // floats in a panel of a stage
+constexpr int BWD_STAGE = 4 * BWD_QPANEL;  // 16 KB, also a lo or V^T plane
+// P hi and lo, the ring, two lo planes, two pairs of V^T planes
+constexpr int BWD_SMEM = sizeof(float) * (2 * 4 * BWD_PPANEL +
+                                          (BWD_RING + 2 + 4) * BWD_STAGE) +
+                         1024;
 
 // As `swizzled`, for panels of `panel` floats.
 __device__ __forceinline__ int swizzled_in(int panel, int row, int c) {
   return (c >> 3) * panel + row * 32 + (((c & 7) ^ (row & 7)) << 2);
 }
 
-// One block: rows [64 b, 64 b + 64) of A against all tiles of 32 rows of B,
-// both products on wgmma, in 3xTF32, by two warpgroups: one issues the
-// wgmma and does the arithmetic on their results (the consumer), the other
-// copies and splits the tiles (the producer). The block's rows of A lie in
-// shared memory in the swizzled layout, with their lo plane, for its whole
-// life (the registers go to the sums). A tile of B arrives by cp.async in
-// the same layout and serves as the hi plane of the similarity product;
-// the producer writes its lo plane and, for the second product, the tile
-// less r (the first row of B that the block owns: see "what is summed"
-// above), transposed, with its lo plane: V^T[feature][column], which is
-// what wgmma needs of a TF32 operand that is summed over the tile's
-// columns. The similarities come out of wgmma in the accumulator layout (a
-// lane has columns 2 t, 2 t + 1 of each 8), become the coefficients in
+// One block: rows [64 b, 64 b + 64) of P against all tiles of 32 rows of
+// Q (P, Q = A, B for dA; B, A for dB), both products on wgmma, in 3xTF32,
+// by two warpgroups: one issues the wgmma and does the arithmetic on their
+// results (the consumer), the other copies and splits the tiles (the
+// producer). The block's rows of P lie in shared memory in the swizzled
+// layout, with their lo plane, for its whole life (the registers go to
+// the sums). A tile of Q arrives by cp.async in the same layout; the
+// producer then rewrites it in place less r (the row of Q at the block's
+// first own index: see "what is summed" above), which is the hi plane of
+// the similarity product, and writes its lo plane and, for the second
+// product, the same values transposed, with their lo plane:
+// V^T[feature][column], which is what wgmma needs of a TF32 operand that
+// is summed over the tile's columns. Each producer thread takes one
+// feature of every column of the tile, so no two threads touch one
+// element. The similarities come out of wgmma in the accumulator layout
+// (a lane has columns 2 t, 2 t + 1 of each 8), become the coefficients in
 // place, and go back in as the A operand of the second product (k = t,
 // t + 4): V^T is written with its columns in that order, and nothing
 // moves. The second product starts from zero for every tile and is added
-// to the running total with a float32 add (the two-level sum).
+// to the running total with a float32 add (the two-level sum). dB reads
+// lse_i and g_i of a tile's columns one tile ahead (in flight under the
+// second product and the next similarity product), keeps c_j, and adds
+// r c_j in the epilogue.
 //
 // Per tile j, after one barrier of all 256 threads: the consumer runs the
 // similarities of tile j on the tensor cores, adds tile j - 1's product to
@@ -899,146 +1045,156 @@ __device__ __forceinline__ int swizzled_in(int panel, int row, int c) {
 // asynchronous (it puts a wait behind every one otherwise, silently or
 // with remark C7518): no group left open across the loop's back edge, and
 // a role test that it can see is uniform in a warp.
-__global__ void __launch_bounds__(DA_THREADS, 1)
-infonce_bwd_da_wgmma_kernel(const float* __restrict__ A,
-                            const float* __restrict__ B,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ gout,
-                            float* __restrict__ dA, int n, int f,
-                            float inv_tau) {
+template <bool DB>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+infonce_bwd_wgmma_kernel(const float* __restrict__ A,
+                         const float* __restrict__ B,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ gout,
+                         float* __restrict__ grad, int n, int f,
+                         float inv_tau) {
   extern __shared__ float smem_raw[];
-  float* a_hi = reinterpret_cast<float*>(
+  const float* __restrict__ P = DB ? B : A;
+  const float* __restrict__ Q = DB ? A : B;
+  float* p_hi = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* a_lo = a_hi + 4 * DA_APANEL;
-  float* ring = a_lo + 4 * DA_APANEL;
-  float* lo = ring + DA_RING * DA_STAGE;  // two lo planes
-  float* vt = lo + 2 * DA_STAGE;          // two pairs (hi, lo) of V^T planes
+  float* p_lo = p_hi + 4 * BWD_PPANEL;
+  float* ring = p_lo + 4 * BWD_PPANEL;
+  float* lo = ring + BWD_RING * BWD_STAGE;  // two lo planes
+  float* vt = lo + 2 * BWD_STAGE;           // two pairs (hi, lo) of V^T planes
   // from lane 0, so that the compiler sees a branch no warp diverges on
   const bool producer = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) != 0;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * DA_ROWS, row0 = r0 + 16 * warp;
+  const int r0 = blockIdx.x * BWD_ROWS, row0 = r0 + 16 * warp;
   const int npanels = (f + 31) / 32;  // panels of 32 features
   const int chunks = 8 * npanels;     // 16-byte chunks of a row
-  const int ntiles = (n + DA_TN - 1) / DA_TN;
+  const int ntiles = (n + BWD_TN - 1) / BWD_TN;
   const int c = tid % 32;      // this thread's chunk of a row
   const float scale2 = inv_tau * LOG2E;
+  const float* __restrict__ rq = Q + (int64_t)r0 * f;  // r
 
   // this thread's chunk in rows warp + 4 i of a stage: the row's low bits
   // are (warp + 4 i) & 7, so the swizzle flips one bit with i's parity
-  const int off0 = swizzled_in(DA_BPANEL, warp, c);
-  const int off1 = swizzled_in(DA_BPANEL, warp + 4, c) - 4 * 32;
+  const int off0 = swizzled_in(BWD_QPANEL, warp, c);
+  const int off1 = swizzled_in(BWD_QPANEL, warp + 4, c) - 4 * 32;
   const bool c_in = 4 * c < f;
   auto load_tile = [&](int tile) {
     if (tile < ntiles && c < chunks) {
-      float* stage = ring + (tile % DA_RING) * DA_STAGE;
-      const int col0 = tile * DA_TN + warp;
-      const float* src = B + (int64_t)col0 * f + 4 * c;
+      float* stage = ring + (tile % BWD_RING) * BWD_STAGE;
+      const int col0 = tile * BWD_TN + warp;
+      const float* src = Q + (int64_t)col0 * f + 4 * c;
 #pragma unroll
-      for (int i = 0; i < DA_TN / 4; ++i) {
+      for (int i = 0; i < BWD_TN / 4; ++i) {
         const bool in = c_in && col0 + 4 * i < n;
         cp_async16(stage + ((i & 1) ? off1 : off0) + 4 * i * 32,
-                   in ? src + (int64_t)4 * i * f : B, in ? 16 : 0);
+                   in ? src + (int64_t)4 * i * f : Q, in ? 16 : 0);
       }
     }
     cp_async_commit();
   };
   if (producer && c < chunks) {
 #pragma unroll 4
-    for (int row = warp; row < DA_ROWS; row += 4) {
+    for (int row = warp; row < BWD_ROWS; row += 4) {
       const bool in = r0 + row < n && 4 * c < f;
-      cp_async16(a_hi + swizzled_in(DA_APANEL, row, c),
-                 in ? A + (int64_t)(r0 + row) * f + 4 * c : A, in ? 16 : 0);
+      cp_async16(p_hi + swizzled_in(BWD_PPANEL, row, c),
+                 in ? P + (int64_t)(r0 + row) * f + 4 * c : P, in ? 16 : 0);
     }
   }
   if (producer)
-    for (int tile = 0; tile < DA_RING - 1; ++tile) load_tile(tile);
+    for (int tile = 0; tile < BWD_RING - 1; ++tile) load_tile(tile);
 
-  float lse2[2], gs[2];  // rows row0 + g and row0 + g + 8
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    lse2[h] = row < n ? lse[row] * LOG2E : 0.f;
-    gs[h] = row < n ? gout[row] * inv_tau : 0.f;
-  }
-  // this thread's feature of the transposed planes, and r there
-  const float ref = tid < f ? B[(int64_t)r0 * f + tid] : 0.f;
+  // this thread's feature of a tile, and r there
+  const float ref = tid < f ? rq[tid] : 0.f;
 
-  // the lo plane of a tile, and its V^T planes: V^T[feature][k] with k the
-  // place of a column in the second product's A operand: columns 8 s + 2 u
-  // and 8 s + 2 u + 1 sit at k = 8 s + u and 8 s + u + 4
+  // a tile of Q, once it has landed: in place less r, its lo plane, and
+  // its V^T planes: V^T[feature][k] with k the place of a column in the
+  // second product's A operand: columns 8 s + 2 u and 8 s + 2 u + 1 sit at
+  // k = 8 s + u and 8 s + u + 4. All 32 loads are issued before the first
+  // store, which the compiler cannot move them past: one wait on shared
+  // memory a tile, not one a column.
   auto split_tile = [&](int tile) {
-    const float* stage = ring + (tile % DA_RING) * DA_STAGE;
-    if (c < chunks) {
-      float* plane = lo + (tile % 2) * DA_STAGE;
-#pragma unroll
-      for (int i = 0; i < DA_TN / 4; ++i) {
-        const int off = ((i & 1) ? off1 : off0) + 4 * i * 32;
-        const float4 v = *reinterpret_cast<const float4*>(stage + off);
-        *reinterpret_cast<uint4*>(plane + off) = make_uint4(
-            lo_of_cut(v.x), lo_of_cut(v.y), lo_of_cut(v.z), lo_of_cut(v.w));
-      }
-    }
-    float* vh = vt + (tile % 2) * 2 * DA_STAGE;
-    float* vl = vh + DA_STAGE;
-    const int tbase = (tid / 32) * DA_BPANEL + tid % 4;
+    float* stage = ring + (tile % BWD_RING) * BWD_STAGE;
+    float* plane = lo + (tile % 2) * BWD_STAGE;
+    float* vh = vt + (tile % 2) * 2 * BWD_STAGE;
+    float* vl = vh + BWD_STAGE;
+    const int tbase = (tid / 32) * BWD_QPANEL + tid % 4;
     const int tx4 = ((tid / 4) & 7) << 2;
+    auto at = [&](int q, int u) {  // column 8 (q / 2) + 2 u + (q & 1)
+      const int col = 8 * (q / 2) + 2 * u + (q & 1);
+      return tbase + col * 32 + (tx4 ^ ((col & 7) << 2));
+    };
+    float d[8][4];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) d[q][u] = stage[at(q, u)];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {  // k = 4 q .. 4 q + 3
-      float d[4];
+      uint32_t l[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int col = 8 * (q / 2) + 2 * u + (q & 1);
-        const float x = stage[tbase + col * 32 + (tx4 ^ ((col & 7) << 2))];
-        d[u] = tid < f ? x - ref : 0.f;
+        d[q][u] = tid < f ? d[q][u] - ref : 0.f;
+        l[u] = lo_of_cut(d[q][u]);
+        stage[at(q, u)] = d[q][u];
+        plane[at(q, u)] = __uint_as_float(l[u]);
       }
       const int off = tid * 32 + ((q ^ (tid & 7)) << 2);
       *reinterpret_cast<float4*>(vh + off) =
-          make_float4(d[0], d[1], d[2], d[3]);
-      *reinterpret_cast<uint4*>(vl + off) = make_uint4(
-          lo_of_cut(d[0]), lo_of_cut(d[1]), lo_of_cut(d[2]), lo_of_cut(d[3]));
+          make_float4(d[q][0], d[q][1], d[q][2], d[q][3]);
+      *reinterpret_cast<uint4*>(vl + off) = make_uint4(l[0], l[1], l[2], l[3]);
     }
   };
 
-  cp_async_wait<DA_RING - 2>();
-  __syncthreads();  // the block's rows of A and tile 0 have landed
+  cp_async_wait<BWD_RING - 2>();
+  __syncthreads();  // the block's rows of P and tile 0 have landed
   if (producer && c < chunks) {
 #pragma unroll 4
-    for (int row = warp; row < DA_ROWS; row += 4) {
-      const int off = swizzled_in(DA_APANEL, row, c);
-      const float4 v = *reinterpret_cast<const float4*>(a_hi + off);
-      *reinterpret_cast<uint4*>(a_lo + off) = make_uint4(
+    for (int row = warp; row < BWD_ROWS; row += 4) {
+      const int off = swizzled_in(BWD_PPANEL, row, c);
+      const float4 v = *reinterpret_cast<const float4*>(p_hi + off);
+      *reinterpret_cast<uint4*>(p_lo + off) = make_uint4(
           lo_of_cut(v.x), lo_of_cut(v.y), lo_of_cut(v.z), lo_of_cut(v.w));
     }
   }
-  if (producer) split_tile(0);
-
-  float acc[16][4] = {}, part[16][4] = {}, s[4][4] = {};
   if (producer) {
+    split_tile(0);
     for (int tile = 0; tile < ntiles; ++tile) {
-      cp_async_wait<DA_RING - 3>();  // this thread's copies of tile + 1
+      cp_async_wait<BWD_RING - 3>();  // this thread's copies of tile + 1
       // what this thread wrote (copies and planes) becomes visible to wgmma
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
-      load_tile(tile + DA_RING - 1);
+      load_tile(tile + BWD_RING - 1);
       if (tile + 1 < ntiles) split_tile(tile + 1);
     }
     cp_async_wait<0>();
     return;
   }
+
+  Anchors<4, DB> an;
+  if constexpr (DB)
+    an.cols(lse, gout, 0, t, n, inv_tau);  // then a tile ahead
+  else
+    an.rows(lse, gout, row0 + g, n, inv_tau);
+  float thi[2], tlo[2];  // P_row . r of rows row0 + g and row0 + g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    dot_ref(P, rq, row0 + g + 8 * h, n, f, t, thi[h], tlo[h]);
+  double csum[2] = {0.0, 0.0};
+  float acc[16][4] = {}, part[16][4] = {}, s[4][4] = {};
   for (int tile = 0; tile < ntiles; ++tile) {
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    const float* stage = ring + (tile % DA_RING) * DA_STAGE;
-    const float* plane = lo + (tile % 2) * DA_STAGE;
+    const float* stage = ring + (tile % BWD_RING) * BWD_STAGE;
+    const float* plane = lo + (tile % 2) * BWD_STAGE;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll 1
     for (int p = 0; p < npanels; ++p) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const int pa = p * DA_APANEL + kk * 8;
-        const int pb = p * DA_BPANEL + kk * 8;
-        const uint64_t ah = wgmma_desc(a_hi + pa);
-        const uint64_t al = wgmma_desc(a_lo + pa);
+        const int pa = p * BWD_PPANEL + kk * 8;
+        const int pb = p * BWD_QPANEL + kk * 8;
+        const uint64_t ah = wgmma_desc(p_hi + pa);
+        const uint64_t al = wgmma_desc(p_lo + pa);
         const uint64_t bh = wgmma_desc(stage + pb);
         const uint64_t bl = wgmma_desc(plane + pb);
         wgmma_tf32_n32(s, al, bh, p + kk > 0);  // the small terms first
@@ -1053,37 +1209,19 @@ infonce_bwd_da_wgmma_kernel(const float* __restrict__ A,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
     }
+    const int c0 = tile * BWD_TN;
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(s[j][e])::"memory");
 
-    // the coefficients, in place; rows past n have gs = 0
-    const int c0 = tile * DA_TN;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] =
-            -exp2f(fmaf(s[j][e], scale2, -lse2[e >> 1])) * gs[e >> 1];
-    if (c0 < row0 + 16 && c0 + DA_TN > row0) {  // the diagonal crosses
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (c0 + 8 * j + 2 * t + (e & 1) == row0 + g + 8 * (e >> 1))
-            s[j][e] += gs[e >> 1];
-    }
-    if (c0 + DA_TN > n) {  // the ragged last tile
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (c0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = 0.f;
-    }
-    const float* vh = vt + (tile % 2) * 2 * DA_STAGE;
-    const float* vl = vh + DA_STAGE;
+    tile_coef<4, DB>(s, an, thi, tlo, c0, row0, g, t, n, scale2, csum);
+    // the next tile's anchors, in flight under the second product and the
+    // next similarity product
+    if constexpr (DB) an.cols(lse, gout, c0 + BWD_TN, t, n, inv_tau);
+    const float* vh = vt + (tile % 2) * 2 * BWD_STAGE;
+    const float* vl = vh + BWD_STAGE;
     // the A operand of the second product, every k-step in registers of
     // its own: k = t is the tile's column 8 k + 2 t, k = t + 4 column
     // 8 k + 2 t + 1
@@ -1124,15 +1262,22 @@ infonce_bwd_da_wgmma_kernel(const float* __restrict__ A,
   for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  if (DB) quad_sum(csum);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
     if (row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      if (8 * j + 2 * t < f)
-        *reinterpret_cast<float2*>(dA + (int64_t)row * f + 8 * j + 2 * t) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    for (int j = 0; j < 16; ++j) {
+      const int k = 8 * j + 2 * t;
+      if (k >= f) continue;
+      float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      if (DB) {  // dB_j = the sum + r c_j
+        v.x = static_cast<float>(v.x + (double)rq[k] * csum[h]);
+        v.y = static_cast<float>(v.y + (double)rq[k + 1] * csum[h]);
+      }
+      *reinterpret_cast<float2*>(grad + (int64_t)row * f + k) = v;
+    }
   }
 }
 
@@ -1165,169 +1310,53 @@ int launch_fwd(const float* a, const float* b, float* out, float* lse, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int WARPS>
-int launch_bwd_da(const float* a, const float* b, const float* lse,
-                  const float* g, float* da, int n, int f, float inv_tau,
-                  cudaStream_t stream) {
+template <int WARPS, bool DB>
+int launch_bwd(const float* a, const float* b, const float* lse,
+               const float* g, float* grad, int n, int f, float inv_tau,
+               cudaStream_t stream) {
   const int nch = (f + KC - 1) / KC;
   const size_t bytes = smem_bytes(WARPS, nch);
   const cudaError_t err = cudaFuncSetAttribute(
-      infonce_bwd_da_kernel<WARPS>,
+      infonce_bwd_kernel<WARPS, DB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = f % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(da);
-  infonce_bwd_da_kernel<WARPS>
+  const bool vec =
+      f % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(grad);
+  infonce_bwd_kernel<WARPS, DB>
       <<<dim3((n + 16 * WARPS - 1) / (16 * WARPS), nch), 32 * WARPS, bytes,
-         stream>>>(a, b, lse, g, da, n, f, inv_tau, vec);
+         stream>>>(a, b, lse, g, grad, n, f, inv_tau, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ===========================================================================
-// dB: the first design, float32 FMA outside the tensor cores
-// ===========================================================================
-
-constexpr int BM = 64;         // tile rows
-constexpr int BN = 64;         // tile columns
-constexpr int BK = 16;         // feature chunk of the similarity product
-constexpr int FO = 128;        // output features of one gradient block
-constexpr int VK = 16;         // value rows staged per step of the gradient
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int PAD = 4;         // keeps float4 rows aligned
-
-// t[kk][row] = x[r0 + row][k0 + kk], zero outside the [n, f] matrix.
-__device__ __forceinline__ void load_chunk_t(float (*t)[BM + PAD],
-                                             const float* __restrict__ x,
-                                             int r0, int k0, int n, int f) {
-  for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-    const int row = e / BK, kk = e % BK;
-    const int gr = r0 + row, gk = k0 + kk;
-    t[kk][row] = (gr < n && gk < f) ? x[(int64_t)gr * f + gk] : 0.f;
+// dA (DB false) or dB (DB true): wgmma where the width and the pointers
+// allow it, else mma.sync with the most rows that fit.
+template <bool DB>
+int launch_grad(const void* a, const void* b, const void* lse, const void* g,
+                void* grad, int n, int f, float inv_tau, void* stream) {
+  if (n <= 0 || f <= 0) return 0;
+  const float* pa = static_cast<const float*>(a);
+  const float* pb = static_cast<const float*>(b);
+  const float* pl = static_cast<const float*>(lse);
+  const float* pg = static_cast<const float*>(g);
+  float* pd = static_cast<float*>(grad);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f <= KC && f % 4 == 0 && aligned16(a) && aligned16(b) &&
+      aligned16(grad)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        infonce_bwd_wgmma_kernel<DB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    infonce_bwd_wgmma_kernel<DB>
+        <<<(n + BWD_ROWS - 1) / BWD_ROWS, BWD_THREADS, BWD_SMEM, st>>>(
+            pa, pb, pl, pg, pd, n, f, inv_tau);
+    return static_cast<int>(cudaGetLastError());
   }
-}
-
-// acc[a][b] = P[r0 + 4 ty + a] . Q[c0 + tx + 16 b], in sequential FMA over
-// the features.
-__device__ __forceinline__ void dot_tile(float acc[4][4],
-                                         const float* __restrict__ P,
-                                         const float* __restrict__ Q,
-                                         int r0, int c0, int n, int f,
-                                         float (*ps)[BM + PAD],
-                                         float (*qs)[BM + PAD]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int k0 = 0; k0 < f; k0 += BK) {
-    load_chunk_t(ps, P, r0, k0, n, f);
-    load_chunk_t(qs, Q, c0, k0, n, f);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 pa = *reinterpret_cast<const float4*>(&ps[kk][4 * ty]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      float qv[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) qv[b] = qs[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(pv[a], qv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-}
-
-// One block: rows [j0, j0 + 64) of B, output features [fo0, fo0 + 128).
-// It loops over all tiles of A's rows i0:
-//   dB[j] += sum_i coef(i, j) A[i]
-// The tile's rows are the columns j of the similarity matrix, so the
-// anchor index i, which carries lse_i and g_i, is the tile column.
-__global__ void __launch_bounds__(THREADS)
-infonce_bwd_db_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ g, float* __restrict__ dB,
-                      int n, int f, float inv_tau) {
-  __shared__ __align__(16) float ps[BK][BM + PAD];
-  __shared__ __align__(16) float qs[BK][BM + PAD];
-  __shared__ float cs[BM][BN + 1];
-  __shared__ float vs[VK][FO];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int j0 = blockIdx.x * BM;
-  const int fo0 = blockIdx.y * FO;
-
-  float acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[a][q] = 0.f;
-
-  for (int i0 = 0; i0 < n; i0 += BN) {
-    float st[4][4];
-    dot_tile(st, B, A, j0, i0, n, f, ps, qs);
-    float col_lse[4], col_g[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int i = i0 + tx + 16 * b;
-      col_lse[b] = i < n ? lse[i] : 0.f;
-      col_g[b] = i < n ? g[i] * inv_tau : 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = j0 + 4 * ty + a;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = i0 + tx + 16 * b;
-        float c = 0.f;
-        if (j < n && i < n) {
-          const float prob = expf(st[a][b] * inv_tau - col_lse[b]);
-          c = ((j == i ? 1.f : 0.f) - prob) * col_g[b];
-        }
-        cs[4 * ty + a][tx + 16 * b] = c;
-      }
-    }
-    __syncthreads();
-    float part[4][8];  // this tile's sum, added to acc below
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) part[a][q] = 0.f;
-    for (int v0 = 0; v0 < BN; v0 += VK) {
-      for (int e = threadIdx.x; e < VK * FO; e += THREADS) {
-        const int vr = e / FO, fc = e % FO;
-        const int gi = i0 + v0 + vr, gf = fo0 + fc;
-        vs[vr][fc] = (gi < n && gf < f) ? A[(int64_t)gi * f + gf] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int vr = 0; vr < VK; ++vr) {
-        float vv[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) vv[q] = vs[vr][tx + 16 * q];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float c = cs[4 * ty + a][v0 + vr];
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            part[a][q] = fmaf(c, vv[q], part[a][q]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[a][q] += part[a][q];
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = j0 + 4 * ty + a;
-    if (j >= n) continue;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int fc = fo0 + tx + 16 * q;
-      if (fc < f) dB[(int64_t)j * f + fc] = acc[a][q];
-    }
+  switch (warps_for((f + KC - 1) / KC)) {
+    case 8: return launch_bwd<8, DB>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
+    case 4: return launch_bwd<4, DB>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
+    case 2: return launch_bwd<2, DB>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
+    case 1: return launch_bwd<1, DB>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -1367,42 +1396,13 @@ int infonce_fwd(const void* a, const void* b, void* out, void* lse, int n,
 int infonce_bwd_da(const void* a, const void* b, const void* lse,
                    const void* g, void* da, int n, int f, float inv_tau,
                    void* stream) {
-  if (n <= 0 || f <= 0) return 0;
-  const float* pa = static_cast<const float*>(a);
-  const float* pb = static_cast<const float*>(b);
-  const float* pl = static_cast<const float*>(lse);
-  const float* pg = static_cast<const float*>(g);
-  float* pd = static_cast<float*>(da);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f <= KC && f % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(da)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        infonce_bwd_da_wgmma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, DA_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    infonce_bwd_da_wgmma_kernel<<<(n + DA_ROWS - 1) / DA_ROWS, DA_THREADS,
-                                  DA_SMEM, st>>>(pa, pb, pl, pg, pd, n, f,
-                                                 inv_tau);
-    return static_cast<int>(cudaGetLastError());
-  }
-  switch (warps_for((f + KC - 1) / KC)) {
-    case 8: return launch_bwd_da<8>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
-    case 4: return launch_bwd_da<4>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
-    case 2: return launch_bwd_da<2>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
-    case 1: return launch_bwd_da<1>(pa, pb, pl, pg, pd, n, f, inv_tau, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_grad<false>(a, b, lse, g, da, n, f, inv_tau, stream);
 }
 
 int infonce_bwd_db(const void* a, const void* b, const void* lse,
                    const void* g, void* db, int n, int f, float inv_tau,
                    void* stream) {
-  if (n <= 0 || f <= 0) return 0;
-  infonce_bwd_db_kernel<<<dim3((n + BM - 1) / BM, (f + FO - 1) / FO), THREADS,
-                          0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(lse), static_cast<const float*>(g),
-      static_cast<float*>(db), n, f, inv_tau);
-  return static_cast<int>(cudaGetLastError());
+  return launch_grad<true>(a, b, lse, g, db, n, f, inv_tau, stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -75,6 +76,28 @@ def load(stem: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         declare(lib)
         _libs[stem] = lib
     return _libs[stem]
+
+
+def sass_counts(lib: Path,
+                needles: Tuple[str, ...]) -> Dict[str, Dict[str, int]]:
+    """How often each of `needles` occurs in each kernel's machine code
+    (`cuobjdump -sass` of a built library), by mangled kernel name: for
+    instance `WARPGROUP.DEPBAR`, the full waits that ptxas puts behind
+    `wgmma` when it cannot keep them asynchronous."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {k: 0 for k in needles}
+        elif name is not None:
+            for k in needles:
+                counts[name][k] += line.count(k)
+    return counts
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:

@@ -4,11 +4,11 @@ Hopper, their plain PyTorch versions, and the autograd wiring.
 Counterpart of `rlap_tpu/ops/infonce_pallas.py`. The kernels
 (`rlap_tpu_torch/csrc/infonce.cu`) replace the Pallas TPU kernels
 `_fwd_kernel`, `_bwd_da_kernel` and `_bwd_db_kernel`; the source says what
-bounds them on the H100 and how they are laid out. The forward and dA run
-on the tensor cores in three TF32 passes on split operands ("3xTF32"),
-which keeps float32 accuracy: through `wgmma` where f <= 128 and
-f % 4 == 0, through `mma.sync` at other widths; dB is float32 FMA.
-`tf32_round`, `tf32_truncate`, `matmul_3xtf32` and the two
+bounds them on the H100 and how they are laid out. All three run on the
+tensor cores in three TF32 passes on split operands ("3xTF32"), which
+keeps float32 accuracy: through `wgmma` where f <= 128, f % 4 == 0 and the
+rows are 16-byte aligned, through `mma.sync` at other widths.
+`tf32_round`, `tf32_truncate`, `matmul_3xtf32` and the three
 `*_3xtf32_plain` functions emulate that arithmetic in plain PyTorch, for
 tests: nothing else calls them.
 
@@ -16,9 +16,9 @@ Each kernel wrapper (`infonce_fwd`, `infonce_bwd_da`, `infonce_bwd_db`)
 runs the plain version for a tensor on the CPU and launches the kernel for
 a CUDA tensor, or raises: there is no fallback on the card. Each launch
 adds one to `launch_counts[name]`, so a run can show that it went through
-the kernels. The forward and dA keep a block's rows resident in shared
-memory, which bounds the width: f <= 1920, and a wider launch is refused
-with a CUDA error.
+the kernels. They keep a block's rows resident in shared memory, which
+bounds the width: f <= 1920, and a wider launch is refused with a CUDA
+error.
 
 The library is built from the repository's source at first use and loaded
 with ctypes, by `rlap_tpu_torch/ops/_build.py`.
@@ -113,9 +113,8 @@ def infonce_fwd_plain(a, b, tau: float, block: int = 1024,
     return torch.cat(outs), torch.cat(lses)
 
 
-def _coef_rows(a, b, lse, g, i0: int, block: int, tau: float,
-               matmul_t=_matmul_t):
-    sim = _sim_rows(a, b, i0, block, tau, matmul_t)
+def _coef_rows(a, b, lse, g, i0: int, block: int, tau: float):
+    sim = _sim_rows(a, b, i0, block, tau)
     coef = -torch.exp(sim - lse[i0:i0 + block, None])
     coef.diagonal(offset=i0).add_(1.0)
     return coef * (g[i0:i0 + block, None] * (1.0 / tau))
@@ -136,7 +135,7 @@ def infonce_bwd_db_plain(a, b, lse, g, tau: float, block: int = 1024):
 
 
 # ---------------------------------------------------------------------------
-# the forward and dA kernels' arithmetic in plain PyTorch, for tests
+# the kernels' arithmetic in plain PyTorch, for tests
 # ---------------------------------------------------------------------------
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +164,7 @@ def matmul_3xtf32(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     |x - hi - lo| <= 2^-21 |x|."""
     p_hi, q_hi = tf32_round(p), tf32_round(q)
     p_lo, q_lo = tf32_truncate(p - p_hi), tf32_truncate(q - q_hi)
-    return p_lo @ q_hi.T + p_hi @ q_lo.T + p_hi @ q_hi.T
+    return p_lo @ q_hi.mT + p_hi @ q_lo.mT + p_hi @ q_hi.mT
 
 
 def infonce_fwd_3xtf32_plain(a, b, tau: float, block: int = 1024):
@@ -173,16 +172,86 @@ def infonce_fwd_3xtf32_plain(a, b, tau: float, block: int = 1024):
     return infonce_fwd_plain(a, b, tau, block, matmul_3xtf32)
 
 
-def infonce_bwd_da_3xtf32_plain(a, b, lse, g, tau: float, block: int = 128):
-    """`infonce_bwd_da_plain` with the 3xTF32 product, as the kernel sums
-    it: a block of rows takes sum_j coef_ij (B_j - r) with r the first row
-    of B that the block owns. The coefficients of a row sum to 0 when lse
+def _bwd_3xtf32_plain(p, q, lse, g, tau: float, block: int, tile: int,
+                      db: bool) -> torch.Tensor:
+    """The gradient kernels' arithmetic. A block owns `block` rows of p (A
+    for dA, B for dB) and streams the rows of q (B, A) in tiles of `tile`;
+    r is the row of q at the block's first own index.
+
+    - The similarity of a tile is taken against q - r, in 3xTF32, and
+      t = p . r (float64, kept as float32 hi + lo) is added back to it:
+      the tensor cores truncate as they add, and near |s| = 1 that biases
+      every similarity alike, which a coefficient turns into the same
+      relative error for every anchor (dB's sum does not cancel it).
+    - Each tile's product coef . (q_tile - r) starts from zero and is added
+      to a float32 total (the two-level sum).
+    - dA: a row's coefficients sum to 0, so the total is dA.
+    - dB: a column's coefficients sum to c_j != 0 (the softmax runs over
+      the other index), so the total is dB_j - r c_j, and r c_j is added
+      back. c_j is summed in float32 within a tile and in float64 across
+      tiles: a float32 running total of c_j costs more than it saves at
+      n=20000 on alike rows."""
+    n, f = p.shape
+    nb, nt = -(-n // block), -(-n // tile)
+    m = max(nb * block, nt * tile)
+
+    def padded(x):  # zero rows past n
+        out = x.new_zeros((m,) + tuple(x.shape[1:]))
+        out[:n] = x
+        return out
+
+    pb = padded(p)[:nb * block].view(nb, block, f)
+    qp, lse_p, g_p = padded(q), padded(lse), padded(g)
+    r = q[torch.arange(nb, device=q.device) * block]          # [nb, f]
+    t = (pb.double() * r[:, None].double()).sum(-1)
+    t_hi = t.float()
+    t_lo = (t - t_hi.double()).float()
+    rows = torch.arange(nb * block, device=p.device).view(nb, 1, block, 1)
+    total = p.new_zeros(nb, block, f)
+    c64 = torch.zeros(nb, block, dtype=torch.float64, device=p.device)
+    per = max(1, (1 << 22) // (nb * block * tile))  # tiles at once: ~4M s
+    for i0 in range(0, nt * tile, per * tile):
+        k = min(per, nt - i0 // tile)
+        cols = torch.arange(i0, i0 + k * tile, device=p.device)
+        cols = cols.view(k, 1, tile)
+        v = (qp[i0:i0 + k * tile].view(1, k, tile, f)
+             - r.view(nb, 1, 1, f))                    # [nb, k, tile, f]
+        s = matmul_3xtf32(pb[:, None], v)              # [nb, k, block, tile]
+        s = (s + t_lo[:, None, :, None]) + t_hi[:, None, :, None]
+        anchor = cols if db else rows  # the index i of lse_i and g_i
+        coef = -torch.exp(s * (1.0 / tau) - lse_p[anchor])
+        coef = coef + (rows == cols).to(coef.dtype)
+        coef = coef * (g_p[anchor] * (1.0 / tau)) * (cols < n).to(coef.dtype)
+        for part in matmul_3xtf32(coef, v.mT).unbind(1):  # tile by tile
+            total += part
+        if db:
+            c64 += coef.sum(-1).double().sum(1)
+    if db:
+        total = (total.double() + c64[..., None] * r[:, None].double()
+                 ).to(p.dtype)
+    return total.reshape(nb * block, f)[:n]
+
+
+def infonce_bwd_da_3xtf32_plain(a, b, lse, g, tau: float, block: int = 64,
+                                tile: int = 32):
+    """`infonce_bwd_da_plain` in the kernels' arithmetic
+    (`_bwd_3xtf32_plain`): a block of rows of A sums coef_ij (B_j - r)
+    with r its first row of B. The coefficients of a row sum to 0 when lse
     is the row's logsumexp, so this is dA, and no term is larger than the
     rows' differences."""
-    return torch.cat([
-        matmul_3xtf32(_coef_rows(a, b, lse, g, i0, block, tau, matmul_3xtf32),
-                      (b - b[i0]).T)
-        for i0 in range(0, a.shape[0], block)])
+    return _bwd_3xtf32_plain(a, b, lse, g, tau, block, tile, db=False)
+
+
+def infonce_bwd_db_3xtf32_plain(a, b, lse, g, tau: float, block: int = 64,
+                                tile: int = 32):
+    """`infonce_bwd_db_plain` in the kernels' arithmetic
+    (`_bwd_3xtf32_plain`): a block of rows of B sums coef_ij (A_i - r) over
+    tiles of 32 rows of A, with r = A[j0] at the block's first own index
+    j0, and adds back r c_j, c_j = sum_i coef_ij in float64. The column
+    sums are not 0, so without r c_j the shift would change the result;
+    and their rounding, through r c_j, is what limits dB on alike rows (the
+    tests hold it to 2e-4 of the largest entry at spread 0.003)."""
+    return _bwd_3xtf32_plain(b, a, lse, g, tau, block, tile, db=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""The arithmetic of the port's tensor-core InfoNCE kernels (forward and
-dA), emulated in plain PyTorch on the CPU: every operand is split into
+"""The arithmetic of the port's tensor-core InfoNCE kernels (forward, dA
+and dB), emulated in plain PyTorch on the CPU: every operand is split into
 hi = tf32(x) and lo = tf32(x - hi), and a product is taken as
-lo.hi + hi.lo + hi.hi in float32 ("3xTF32"). Held against float64, against
+lo.hi + hi.lo + hi.hi in float32 ("3xTF32"); the gradients shift both
+products by a row r and sum tile by tile. Held against float64, against
 one TF32 pass (which is why there are three), and against the JAX package's
-fused InfoNCE (its Pallas kernel in interpret mode). The CUDA kernels
-themselves are held against their plain versions on the card, in
-`test_torch_kernels.py`."""
+fused InfoNCE (its Pallas kernel in interpret mode); an emulation of the
+tensor cores' truncating adds shows why the similarity is shifted. The
+CUDA kernels themselves are held against their plain versions on the card,
+in `test_torch_kernels.py`."""
 
 import struct
 
@@ -17,6 +19,18 @@ import torch
 
 from rlap_tpu.ops.infonce_pallas import infonce_fused as j_fused
 from rlap_tpu_torch.ops import infonce_fused as K
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The emulations run many small tensor operations. Under a parallel
+    test run every worker's spare intra-op threads spin at each operation's
+    barrier, which costs more than the threads save, so these tests use
+    one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _bits(x: float) -> int:
@@ -92,6 +106,23 @@ def test_forward_emulation_matches_float64_on_alike_rows():
     torch.testing.assert_close(lse.double(), lse64, rtol=1e-5, atol=1e-5)
 
 
+def _grad_errors(grad, spread, n=2000):
+    """Errors of the kernels' arithmetic (`emulated`) and of the plain
+    float32 version, relative to the largest entry of the float64 result,
+    for `grad` "da" or "db" on alike rows."""
+    a, b, g, _out64, lse64 = _alike_problem(n=n, spread=spread)
+    plain = {"da": K.infonce_bwd_da_plain, "db": K.infonce_bwd_db_plain}[grad]
+    emulate = {"da": K.infonce_bwd_da_3xtf32_plain,
+               "db": K.infonce_bwd_db_3xtf32_plain}[grad]
+    ref = plain(a.double(), b.double(), lse64, g.double(), 0.2)
+    lse = lse64.float()
+
+    def err(x):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    return err(emulate(a, b, lse, g, 0.2)), err(plain(a, b, lse, g, 0.2))
+
+
 @pytest.mark.parametrize("spread", [0.03, 0.003])
 def test_da_emulation_matches_float64_on_alike_rows(spread):
     """The gradient cancels nearly equal terms on alike rows, so it is held
@@ -99,37 +130,99 @@ def test_da_emulation_matches_float64_on_alike_rows(spread):
     coef_ij (B_j - r) keeps it there however alike the rows are, where the
     plain float32 sum of coef_ij B_j loses a digit for each digit of
     likeness."""
-    a, b, g, _out64, lse64 = _alike_problem(spread=spread)
-    ref = K.infonce_bwd_da_plain(a.double(), b.double(), lse64, g.double(),
-                                 0.2)
+    emulated, plain = _grad_errors("da", spread)
+    assert emulated <= 1e-4
+    assert emulated <= plain
+
+
+@pytest.mark.parametrize("spread,bar", [(0.03, 1e-4), (0.003, 2e-4)])
+def test_db_emulation_matches_float64_on_alike_rows(spread, bar):
+    """dB on alike rows: within 1e-4 of the largest entry of the float64
+    result at spread 0.03, and 2e-4 at spread 0.003, where the rounding of
+    the float32 coefficients weighs more (dB's column sums c_j do not
+    vanish, so it reaches the result through r c_j); and no worse than the
+    plain float32 version."""
+    emulated, plain = _grad_errors("db", spread)
+    assert emulated <= bar
+    assert emulated <= plain
+
+
+def _truncating_3xtf32(p, q):
+    """p @ q.T in 3xTF32 as `wgmma` takes it: hi = x cut to TF32, lo =
+    x - hi rounded to TF32; per 8 features the three terms lo.hi, hi.lo,
+    hi.hi are each added to the float32 accumulator exactly and the sum
+    cut toward zero to float32, as the tensor cores add."""
+    ph, qh = K.tf32_truncate(p), K.tf32_truncate(q)
+    pl, ql = K.tf32_round(p - ph), K.tf32_round(q - qh)
+    acc = torch.zeros(p.shape[0], q.shape[0])
+    for k0 in range(0, p.shape[1], 8):
+        for x, y in ((pl, qh), (ph, ql), (ph, qh)):
+            exact = acc.double() + (x[:, k0:k0 + 8].double()
+                                    @ y[:, k0:k0 + 8].double().T)
+            acc = exact.float()
+            acc = torch.where(acc.double().abs() > exact.abs(),
+                              torch.nextafter(acc, torch.zeros_like(acc)), acc)
+    return acc
+
+
+def test_shifted_similarity_keeps_db_clear_of_truncation():
+    """Why the gradient kernels take a tile's similarity against Q - r
+    and add P_row . r back: with truncating adds, A_i . B_j near 1 comes
+    out low by about the same amount for every pair, every coefficient
+    moves alike, and dB (whose column sums do not vanish) misses its
+    2e-4 bar on rows alike to 0.003. Against A - r the similarity is small
+    and so is what truncation takes: within 1e-4. dB is taken in float64
+    from float32 coefficients, so only the similarity differs."""
+    n, tau = 400, 0.2
+    a, b, g, _out64, lse64 = _alike_problem(n=n, spread=0.003)
+    ref = K.infonce_bwd_db_plain(a.double(), b.double(), lse64, g.double(),
+                                 tau)
     lse = lse64.float()
 
-    def err(x):
-        return float((x.double() - ref).abs().max() / ref.abs().max())
+    def err(s):  # s[j, i] = B_j . A_i in float32
+        coef = -torch.exp(s.T * (1.0 / tau) - lse[:, None])
+        coef.diagonal().add_(1.0)
+        coef = coef * (g[:, None] * (1.0 / tau))
+        db = coef.double().T @ a.double()
+        return float((db - ref).abs().max() / ref.abs().max())
 
-    emulated = err(K.infonce_bwd_da_3xtf32_plain(a, b, lse, g, 0.2))
-    assert emulated <= 1e-4
-    assert emulated <= err(K.infonce_bwd_da_plain(a, b, lse, g, 0.2))
+    shifted = torch.empty(n, n)
+    for j0 in range(0, n, 64):
+        r = a[j0]
+        t = b[j0:j0 + 64].double() @ r.double()
+        t_hi = t.float()
+        t_lo = (t - t_hi.double()).float()
+        shifted[j0:j0 + 64] = ((_truncating_3xtf32(b[j0:j0 + 64], a - r)
+                                + t_lo[:, None]) + t_hi[:, None])
+    assert err(_truncating_3xtf32(b, a)) > 2e-4
+    assert err(shifted) <= 1e-4
 
 
-def test_da_emulation_matches_plain_on_random_rows():
-    """Gradients within rtol 1e-4 / atol 1e-6 of the plain version, the bar
-    the kernel is held to on the card; ragged n and f."""
+def _check_random_rows(emulate, plain):
+    """Within rtol 1e-4 / atol 1e-6 of the plain version, the bar the
+    kernels are held to on the card; ragged n and f."""
     a, b = _unit_rows("random", 333, 50, seed=3)
     g = torch.tensor(np.random.default_rng(4).normal(size=333),
                      dtype=torch.float32) / 333
     _out, lse = K.infonce_fwd_plain(a, b, 0.5)
-    torch.testing.assert_close(
-        K.infonce_bwd_da_3xtf32_plain(a, b, lse, g, 0.5),
-        K.infonce_bwd_da_plain(a, b, lse, g, 0.5), rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(emulate(a, b, lse, g, 0.5),
+                               plain(a, b, lse, g, 0.5), rtol=1e-4, atol=1e-6)
+
+
+def test_da_emulation_matches_plain_on_random_rows():
+    _check_random_rows(K.infonce_bwd_da_3xtf32_plain, K.infonce_bwd_da_plain)
+
+
+def test_db_emulation_matches_plain_on_random_rows():
+    _check_random_rows(K.infonce_bwd_db_3xtf32_plain, K.infonce_bwd_db_plain)
 
 
 @pytest.mark.parametrize("mask_on", [False, True])
 @pytest.mark.parametrize("n,f,tau", [(160, 16, 0.5), (133, 10, 0.2)])
 def test_emulated_value_and_grads_match_jax(mask_on, n, f, tau):
     """Value (rtol 1e-5) and both gradients (rtol 1e-4) of the loss, with
-    the forward and dA in the kernels' arithmetic and dB plain, as on the
-    card, against the JAX package's fused InfoNCE."""
+    the forward, dA and dB in the kernels' arithmetic, against the JAX
+    package's fused InfoNCE."""
     r = np.random.default_rng(3 + n)
     x = r.normal(size=(n, f)).astype(np.float32)
     y = r.normal(size=(n, f)).astype(np.float32)
@@ -152,7 +245,7 @@ def test_emulated_value_and_grads_match_jax(mask_on, n, f, tau):
     g = -m.float() / m.float().sum()  # d loss / d out
     torch.autograd.backward(
         [a, b], [K.infonce_bwd_da_3xtf32_plain(ad, bd, lse, g, tau),
-                 K.infonce_bwd_db_plain(ad, bd, lse, g, tau)])
+                 K.infonce_bwd_db_3xtf32_plain(ad, bd, lse, g, tau)])
     np.testing.assert_allclose(loss.numpy(), np.asarray(jv), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg[0]), rtol=1e-4,

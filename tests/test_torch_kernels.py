@@ -6,9 +6,11 @@ machine with a card and no JAX it runs alone:
 
 The `cuda` tests skip without a card (the kernels have no CPU mode).
 InfoNCE values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4 /
-atol 1e-6, in float32 with TF32 off; on alike rows the forward and dA are
-held against float64, within 1e-4 of the largest entry. The access probes
-are int32 and must be bit-equal.
+atol 1e-6, in float32 with TF32 off; on alike rows all three kernels are
+held against float64, within 1e-4 of the largest entry (dB 2e-4 on rows
+alike to 0.003, where the rounding of its float32 coefficients reaches it
+through its column sums). The access probes are int32 and must be
+bit-equal.
 """
 
 import numpy as np
@@ -41,7 +43,7 @@ def _inputs(n, f, seed, device):
                                      (4097, 72, 0.2), (500, 50, 0.5),
                                      (333, 1000, 0.2), (7, 4, 0.5),
                                      (33, 8, 0.2), (65, 124, 0.5),
-                                     (3000, 256, 0.2)])
+                                     (3000, 256, 0.2), (1000, 128, 0.2)])
 def test_cuda_kernels_match_plain(n, f, tau):
     _needs_card()
     a, b, _m, g = _inputs(n, f, n + f, "cuda")
@@ -80,18 +82,21 @@ def test_cuda_kernels_take_rows_that_are_not_16_byte_aligned():
     out_s, lse_s = K.infonce_fwd(shifted(a), shifted(b), tau)
     torch.testing.assert_close(out_s, out, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse_s, lse, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(
-        K.infonce_bwd_da(shifted(a), shifted(b), lse, g, tau),
-        K.infonce_bwd_da(a, b, lse, g, tau), rtol=1e-4, atol=1e-6)
+    for grad in (K.infonce_bwd_da, K.infonce_bwd_db):
+        torch.testing.assert_close(grad(shifted(a), shifted(b), lse, g, tau),
+                                   grad(a, b, lse, g, tau), rtol=1e-4,
+                                   atol=1e-6)
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("spread", [0.03, 0.003])
-def test_cuda_fwd_and_da_match_float64_on_alike_rows(spread):
-    """Rows that share a direction, as a fresh encoder's embeddings do: dA
-    cancels nearly equal terms, so it is held against float64, within 1e-4
-    of the largest entry."""
+def test_cuda_kernels_match_float64_on_alike_rows(spread):
+    """Rows that share a direction, as a fresh encoder's embeddings do: the
+    gradients cancel nearly equal terms, so all three kernels are held
+    against float64, within 1e-4 of the largest entry; dB within 2e-4 at
+    spread 0.003, where the rounding of its float32 coefficients weighs
+    more (its column sums do not vanish, so it reaches the result)."""
     _needs_card()
     n, f, tau = 5000, 128, 0.2
     r = np.random.default_rng(11)
@@ -100,28 +105,33 @@ def test_cuda_fwd_and_da_match_float64_on_alike_rows(spread):
                                   dtype=torch.float32)).cuda().contiguous()
             for _ in range(2))
     g = torch.full((n,), -1.0 / n, device="cuda")
-    out64, lse64 = K.infonce_fwd_plain(a.double(), b.double(), tau)
-    da64 = K.infonce_bwd_da_plain(a.double(), b.double(), lse64, g.double(),
-                                  tau)
+    a64, b64, g64 = a.double(), b.double(), g.double()
+    out64, lse64 = K.infonce_fwd_plain(a64, b64, tau)
+    da64 = K.infonce_bwd_da_plain(a64, b64, lse64, g64, tau)
+    db64 = K.infonce_bwd_db_plain(a64, b64, lse64, g64, tau)
+    lse = lse64.float().contiguous()
     out, _lse = K.infonce_fwd(a, b, tau)
-    da = K.infonce_bwd_da(a, b, lse64.float().contiguous(), g, tau)
+    da = K.infonce_bwd_da(a, b, lse, g, tau)
+    db = K.infonce_bwd_db(a, b, lse, g, tau)
     torch.cuda.synchronize()
-    for got, ref in ((out, out64), (da, da64)):
+    db_bar = 1e-4 if spread == 0.03 else 2e-4
+    for got, ref, bar in ((out, out64, 1e-4), (da, da64, 1e-4),
+                          (db, db64, db_bar)):
         err = (got.double() - ref).abs().max() / ref.abs().max()
-        assert float(err) <= 1e-4
+        assert float(err) <= bar
 
 
 @pytest.mark.cuda
 def test_cuda_rejects_rows_too_wide_for_shared_memory():
-    """The forward and dA keep a block's rows resident in shared memory:
-    f > 1920 does not fit, and the launch is refused, not run some other
-    way."""
+    """The kernels keep a block's rows resident in shared memory: f > 1920
+    does not fit, and the launch is refused, not run some other way."""
     _needs_card()
     a, b, _m, g = _inputs(40, 2000, 1, "cuda")
     with pytest.raises(RuntimeError):
         K.infonce_fwd(a, b, 0.2)
-    with pytest.raises(RuntimeError):
-        K.infonce_bwd_da(a, b, g, g, 0.2)
+    for grad in (K.infonce_bwd_da, K.infonce_bwd_db):
+        with pytest.raises(RuntimeError):
+            grad(a, b, g, g, 0.2)
 
 
 @pytest.mark.cuda
