@@ -45,9 +45,25 @@
    set to 0 just before and read just after, and checks that each view
    removed int(0.2 n) nodes, that the losses are finite, and that each
    InfoNCE kernel ran twice per step.
-7. Prints one JSON line of the probe, one of the main path, one of all
-   eleven kernels, the nvidia-smi line, and last {"ok": true, "device":
-   {...}}. Any failed check raises and the script exits non-zero.
+7. The recipe CLI phase, through `rlap_tpu_torch.cli.run.run_one` with no
+   `device=` (the synthetic stand-ins, as no dataset files are there):
+   GRACE on the PUBMED stand-in (n=19717, f=500) with EdgeDroppingPR
+   views, hidden 128, 3 epochs, with the InfoNCE counts set to 0 just
+   before and read just after (each kernel twice an epoch); MVGRL on the
+   PUBMED stand-in with PPR diffusion views (the 8192-node subsample
+   runs; both views must keep at least 8192 nodes; the PPR build is
+   timed); CCA-SSG on the CORA stand-in with rLap views; GraphCL and BGRL
+   on the MUTAG stand-in with rLap views. Each run's JSONL must hold every
+   event, finite losses and accuracies in [0, 1]. Then every one of the
+   17 registry names and the 10 CCA-SSG functions builds views of the
+   CORA stand-in (n=2708, f=512) on the card, each checked (indices in
+   range, padding = sentinel with weight 0, symmetric unless a diffusion
+   or an adaptive drop, finite weights) and timed; and the InfoNCE
+   kernels are timed at GRACE's shape, n=19717, f=128.
+8. Prints one JSON line of the probe, one of the main path, one of the
+   CLI phase, one of all eleven kernels, the nvidia-smi line, and last
+   {"ok": true, "device": {...}}. Any failed check raises and the script
+   exits non-zero.
 """
 
 from __future__ import annotations
@@ -56,8 +72,10 @@ import argparse
 import concurrent.futures
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,20 +83,30 @@ import torch
 import torch.nn.functional as F
 
 from rlap_tpu_torch.augment.base import Compose
+from rlap_tpu_torch.augment.cca_registry import (CCA_AUGMENTORS,
+                                                 make_cca_augmentor)
+from rlap_tpu_torch.augment.diffusion import PPRDiffusion
 from rlap_tpu_torch.augment.feature import FeatureMasking
+from rlap_tpu_torch.augment.registry import (AUGMENTOR_NAMES,
+                                             make_augmentor_pair)
 from rlap_tpu_torch.augment.rlap import RLap
 from rlap_tpu_torch.bench import probe_access as P
 from rlap_tpu_torch.bench.time_infonce import cuda_ms
+from rlap_tpu_torch.cli.run import run_one
 from rlap_tpu_torch.core import graph as G
 from rlap_tpu_torch.core import rng
+from rlap_tpu_torch.data.loaders import load_dataset
 from rlap_tpu_torch.data.synthetic import barabasi_albert
 from rlap_tpu_torch.models.grace import GraceTrainer
+from rlap_tpu_torch.models.mvgrl import MVGRLTrainer
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
 from rlap_tpu_torch.ops import _build
 from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
 from rlap_tpu_torch.ops.rlap import (_entry, _select, approximate_cholesky,
                                      eliminate)
+from rlap_tpu_torch.utils.config import ExperimentConfig
+from rlap_tpu_torch.utils.logging import read_metrics
 
 # published H100 SXM peaks (NVIDIA data sheet): dense TF32 on the tensor
 # cores, float32 outside them, and HBM bandwidth
@@ -522,6 +550,185 @@ def main_path(g, f: int) -> tuple:
     return summary, launches
 
 
+CLI_EPOCHS = 3
+SUBSAMPLE = 8192
+NODE_EVENTS = {"config", "dataset", "metric:final_loss", "metric:epochs",
+               "raw_feature_baseline", "test_run", "metric:wall_seconds"}
+GRAPH_EVENTS = NODE_EVENTS - {"metric:epochs", "raw_feature_baseline"}
+# views that are not symmetric by design: the diffusions keep each row's
+# top k, and the adaptive drops give the two directions of a pair the
+# probabilities of their own receivers (as the JAX package does)
+NOT_SYMMETRIC = ("PPRDiffusion", "MarkovDiffusion", "rLapPPRDiffusion",
+                 "EdgeDroppingDegree", "EdgeDroppingPR", "EdgeDroppingEVC",
+                 "markovd", "pprd", "ed_deg", "ed_ppr", "ed_evc")
+
+
+def cli_run(cfg: ExperimentConfig, results_dir: str) -> dict:
+    """One `run_one` on the card; checks its JSONL and returns the
+    recipe's numbers. ms per epoch is the time between the `dataset` and
+    `final_loss` events over the epochs run: trainer set-up and the
+    epochs, the first view's one-time costs included."""
+    t = sync_s()
+    run_one(cfg, results_dir=results_dir)
+    wall = sync_s() - t
+    recs = list(read_metrics(f"{results_dir}/{cfg.run_name()}.jsonl"))
+    events = {r["event"] if r["event"] != "metric"
+              else f"metric:{r['name']}" for r in recs}
+    want = NODE_EVENTS if cfg.recipe in ("grace", "mvgrl", "cca_ssg") \
+        else GRAPH_EVENTS
+    require(events == want, f"{cfg.recipe}: events {sorted(events)}")
+    by = {e: [r for r in recs if (r["event"] if r["event"] != "metric"
+                                  else f"metric:{r['name']}") == e]
+          for e in events}
+    loss = by["metric:final_loss"][0]
+    epochs = loss["step"]
+    require(math.isfinite(loss["value"]) and epochs == min(
+        cfg.max_epochs, CLI_EPOCHS), f"{cfg.recipe}: final loss {loss}")
+    acc = by["test_run"][0]["accuracy"]
+    require(0.0 <= acc <= 1.0, f"{cfg.recipe}: accuracy {acc}")
+    fit_s = loss["ts"] - by["dataset"][0]["ts"]
+    out = {"dataset": cfg.dataset, "augmentor": cfg.augmentor,
+           "wall_s": wall, "run_wall_seconds":
+               by["metric:wall_seconds"][0]["value"],
+           "epochs": epochs, "ms_per_epoch": 1e3 * fit_s / epochs,
+           "final_loss": loss["value"], "test_accuracy": acc,
+           "raw_feature_baseline": by["raw_feature_baseline"][0]["accuracy"]
+           if "raw_feature_baseline" in by else None}
+    if "dataset" in by and "num_nodes" in by["dataset"][0]:
+        out["num_nodes"] = by["dataset"][0]["num_nodes"]
+    print(f"cli {cfg.recipe}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_view(name: str, g, out) -> None:
+    n = out.num_nodes
+    live = out.edge_mask
+    require(out.senders.device.type == "cuda", f"{name}: on {out.device}")
+    require(n == g.num_nodes and bool((out.senders >= 0).all())
+            and bool((out.receivers >= 0).all())
+            and int(out.senders.max()) <= n
+            and int(out.receivers.max()) <= n
+            and bool((out.receivers[live] < n).all()),
+            f"{name}: indices out of range")
+    require(bool((out.receivers[~live] == n).all())
+            and bool((out.weights[~live] == 0).all()),
+            f"{name}: padding slots are not (sentinel, weight 0)")
+    require(bool(torch.isfinite(out.weights).all()),
+            f"{name}: weights not finite")
+    if name not in NOT_SYMMETRIC:
+        a = G.to_dense(out)
+        require(bool(torch.equal(a, a.T)), f"{name}: view not symmetric")
+
+
+def registry_sweep() -> dict:
+    """Views of every registry name and CCA-SSG function on the CORA
+    stand-in, on the card, checked and timed (ms, each view's first
+    call)."""
+    g, _y, _meta = load_dataset("CORA")
+    key = rng.key(5)
+    ms = {}
+    for name in AUGMENTOR_NAMES + ("rLapPPRDiffusion",):
+        pair = make_augmentor_pair(name, 0.2, 0.2, num_nodes=g.num_nodes)
+        times = []
+        for i, aug in enumerate(pair):
+            t = sync_s()
+            out = aug(g, rng.fold_in(key, i))
+            times.append(1e3 * (sync_s() - t))
+            check_view(name, g, out)
+        ms[name] = times
+    for name in CCA_AUGMENTORS:
+        aug = make_cca_augmentor(name, 0.2, 0.2)
+        t = sync_s()
+        out = aug(g, key)
+        ms[f"cca:{name}"] = [1e3 * (sync_s() - t)]
+        check_view(name, g, out)
+    print(f"registry views of the CORA stand-in (n={g.num_nodes}, "
+          f"f={g.x.shape[1]}), ms per view: {json.dumps(ms)}", flush=True)
+    return {"n": g.num_nodes, "f": g.x.shape[1], "view_ms": ms}
+
+
+def cli_phase() -> tuple:
+    """The recipe CLI on the card, then the registry sweep. Returns (the
+    phase's summary, InfoNCE launches in the GRACE run)."""
+    summary = {}
+    mvgrl_masks, ppr_ms = [], []
+    views, augment = MVGRLTrainer.views, PPRDiffusion.augment
+
+    def recording_views(self, g, keys=None):
+        g1, g2 = views(self, g, keys)
+        if g1.node_mask is None or g2.node_mask is None:
+            mvgrl_masks.append((0, 0, False))  # no subsample ran
+        else:
+            mvgrl_masks.append((int(g1.node_mask.sum()),
+                                int(g2.node_mask.sum()),
+                                bool(torch.equal(g1.node_mask,
+                                                 g2.node_mask))))
+        return g1, g2
+
+    def timed_augment(self, g, key):
+        t = sync_s()
+        out = augment(self, g, key)
+        ppr_ms.append(1e3 * (sync_s() - t))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["RLAP_TPU_DATA"] = os.path.join(tmp, "no-datasets")
+        base = dict(hidden_dim=128, num_layers=2, max_epochs=CLI_EPOCHS)
+        K.reset_launch_counts()
+        summary["grace"] = cli_run(ExperimentConfig(
+            recipe="grace", dataset="PUBMED", augmentor="EdgeDroppingPR",
+            **base), tmp)
+        launches = dict(K.launch_counts)
+        require(summary["grace"]["num_nodes"] == 19717,
+                f"PUBMED stand-in has {summary['grace']['num_nodes']} nodes")
+        for name in K.KERNELS:
+            require(launches[name] == 2 * CLI_EPOCHS,
+                    f"{name} launched {launches[name]} times in the CLI's "
+                    f"{CLI_EPOCHS} GRACE epochs")
+        summary["grace"]["infonce_launches"] = launches
+
+        MVGRLTrainer.views, PPRDiffusion.augment = (recording_views,
+                                                    timed_augment)
+        try:
+            summary["mvgrl"] = cli_run(ExperimentConfig(
+                recipe="mvgrl", dataset="PUBMED", augmentor="PPRDiffusion",
+                **base), tmp)
+        finally:
+            MVGRLTrainer.views, PPRDiffusion.augment = views, augment
+        require(len(ppr_ms) == 1, f"PPR built {len(ppr_ms)} times")
+        require(all(a >= SUBSAMPLE and b >= SUBSAMPLE and same
+                    for a, b, same in mvgrl_masks),
+                f"MVGRL subsample masks {mvgrl_masks}")
+        summary["mvgrl"]["ppr_build_ms"] = ppr_ms[0]
+        summary["mvgrl"]["subsample_kept"] = sorted(
+            {a for a, _, _ in mvgrl_masks})
+        summary["cca_ssg"] = cli_run(ExperimentConfig(
+            recipe="cca_ssg", dataset="CORA", augmentor="rlap", **base), tmp)
+        for recipe in ("graphcl", "bgrl"):
+            summary[recipe] = cli_run(ExperimentConfig(
+                recipe=recipe, dataset="MUTAG", augmentor="rLap",
+                max_epochs=CLI_EPOCHS), tmp)
+        summary["registry"] = registry_sweep()
+        del os.environ["RLAP_TPU_DATA"]
+
+    # the kernels at GRACE's shape in the CLI run (not counted above)
+    n, f = summary["grace"]["num_nodes"], 128
+    a, b, _m, g = inputs(n, f, False, 11)
+    _, lse = K.infonce_fwd_plain(a, b, 0.2)
+    summary["infonce_at_cli_shape"] = {
+        "n": n, "f": f,
+        "infonce_fwd_ms": cuda_ms(lambda: K.infonce_fwd(a, b, 0.2), 5),
+        "infonce_bwd_da_ms": cuda_ms(
+            lambda: K.infonce_bwd_da(a, b, lse, g, 0.2), 5),
+        "infonce_bwd_db_ms": cuda_ms(
+            lambda: K.infonce_bwd_db(a, b, lse, g, 0.2), 5),
+        **{f"{name}_bound_ms": bound(name, n, f)["bound_ms"]
+           for name in K.KERNELS}}
+    print(f"infonce at the CLI's shape: "
+          f"{json.dumps(summary['infonce_at_cli_shape'])}", flush=True)
+    return summary, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -575,10 +782,18 @@ def main(argv=None) -> int:
     check_default_device()
     summary, launches = main_path(g, f)
     print(json.dumps({"main_path": summary}), flush=True)
+    del g
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cli, cli_launches = cli_phase()
+    cli["phase_s"] = time.perf_counter() - t
+    print(json.dumps({"cli": cli}), flush=True)
 
     kernels = [{"name": name, "route": "cuda",
                 "source": "rlap_tpu_torch/csrc/infonce.cu",
                 "replaces": REPLACES[name], "launches": launches[name],
+                "launches_by_path": {"grace_main_path": launches[name],
+                                     "cli_grace_pubmed": cli_launches[name]},
                 "n": args.n, "f": f, **rows[name]}
                for name in K.KERNELS]
     for name in A.KERNELS:

@@ -5,11 +5,16 @@ The parameters arrive as a nested dict of numpy arrays, as flax's
 `encoder/conv_0/{lin/kernel, bias}`, `encoder/act_0/slope`,
 `project/fc1/{kernel, bias}`. flax stores a dense kernel as [in, out] and
 `nn.Linear` its weight as [out, in], so kernels are transposed. The
-port's `GCNEncoder` keeps its layers in `convs` and `acts` lists, so
-`conv_i` and `act_i` become `convs.i` and `acts.i`. `MLP`'s `dense_i` and
-`MaskedBatchNorm`'s `scale` and `bias` keep their names; its running
-statistics live in flax's separate `batch_stats` collection (`mean`,
-`var`) and become the module's buffers of the same names.
+port's encoders keep their layers in `convs`, `acts` and `bns` lists, so
+`conv_i`, `act_i` and `bn_i` become `convs.i`, `acts.i` and `bns.i`.
+Every other name is kept: `MLP`'s `dense_i`, flax's automatic names
+(`Dense_0`, `MaskedBatchNorm_0`, `PReLU_0`), which the port's modules
+take as attribute names, and leaf parameters such as CCA-SSG's `prelu_i`
+and the slopes of `ChannelPReLU`. `MaskedBatchNorm`'s `scale` and `bias`
+keep their names; its running statistics live in flax's separate
+`batch_stats` collection (`mean`, `var`) and become the module's buffers
+of the same names. The same function carries BGRL's target parameters,
+which have the structure of its online ones.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_LAYER = re.compile(r"(conv|act)_(\d+)")
+_LAYER = re.compile(r"(conv|act|bn)_(\d+)")
 
 
 def _name(key: str) -> str:

@@ -1,1 +1,1 @@
-"""Synthetic datasets."""
+"""Synthetic datasets and the dataset loaders."""

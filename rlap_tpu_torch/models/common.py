@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import inspect
 from typing import Iterable, Optional
 
 import torch
@@ -35,14 +36,22 @@ class EarlyStopper:
         return self.count >= self.tolerance
 
 
+def init_generator(trainer) -> torch.Generator:
+    """A CPU generator for a new model's weights, seeded from a key split
+    off the trainer's, so that the weights do not depend on the device."""
+    trainer.key, k = rng.split(trainer.key)
+    return rng.key(k.initial_seed(), device="cpu")
+
+
 def make_union_batches(graphs, batch_size: int, shuffle_seed: int = 0,
-                       device=None):
+                       device=None, feature_dim: Optional[int] = None):
     """Shuffle the graphs and pad them into block-diagonal unions of one
     fixed capacity, (batch, segment_ids, number of graphs) each, on
     `device` (the card by default). An augmentor sees one disjoint-union
     graph per batch. The capacities do not depend on the shuffle (the sum
     of the `batch_size` largest graphs, rounded up to 128 nodes and 256
-    edges), as in the JAX package, so that batches compare one to one."""
+    edges), as in the JAX package, so that batches compare one to one.
+    Featureless graphs get x = ones of width `feature_dim`."""
     import numpy as np
 
     from rlap_tpu_torch.core import graph as G
@@ -58,7 +67,8 @@ def make_union_batches(graphs, batch_size: int, shuffle_seed: int = 0,
     for start in range(0, len(idx), batch_size):
         chunk = [graphs[int(i)] for i in idx[start:start + batch_size]]
         batch, seg = G.block_diagonal(chunk, node_capacity=ncap,
-                                      edge_capacity=ecap, device=device)
+                                      edge_capacity=ecap,
+                                      feature_dim=feature_dim, device=device)
         batches.append((batch, seg, len(chunk)))
     return batches
 
@@ -66,46 +76,60 @@ def make_union_batches(graphs, batch_size: int, shuffle_seed: int = 0,
 def checkpointed_fit(trainer, g, max_epochs: int, tolerance: int,
                      verbose: bool = False,
                      checkpoint_dir: Optional[str] = None,
-                     checkpoint_every: int = 100) -> list:
+                     checkpoint_every: int = 100,
+                     log_every: int = 50) -> list:
     """Call `trainer.train_epoch(g)` until early stopping or `max_epochs`,
-    and return the losses of the epochs run by this call.
+    and return the losses of the epochs run by this call. A trainer whose
+    `train_epoch` takes `epoch` (to shuffle its batches per epoch) is
+    passed the epoch's index.
 
     With `checkpoint_dir`, the state is saved every `checkpoint_every`
     epochs, at the stop and at the last epoch, and a call that finds a
     checkpoint resumes after its epoch. The checkpoint holds the model's
     parameters and buffers, the optimizer's state, the trainer's key
-    (seed and generator state), and the early-stop state with the flag
-    that the stop has fired, so a resumed run never trains past a
-    recorded stop: a killed run restarts where it left off and gives the
-    losses of the uninterrupted run. Trainer protocol: `train_epoch(g)`,
+    (seed and generator state), the trainer's attributes named in its
+    `_ckpt_extra` (state outside the optimised model, such as BGRL's
+    target parameters), and the early-stop state with the flag that the
+    stop has fired, so a resumed run never trains past a recorded stop: a
+    killed run restarts where it left off and gives the losses of the
+    uninterrupted run. Trainer protocol: `train_epoch(g)`,
     `ensure_init(g)`, and the attributes `model`, `optimizer`, `key` and
     `device`."""
     stopper = EarlyStopper(tolerance)
+    extra = tuple(getattr(trainer, "_ckpt_extra", ()))
+    wants_epoch = "epoch" in inspect.signature(
+        trainer.train_epoch).parameters
 
     def state(epoch: int, stopped: bool) -> dict:
-        return dict(model=trainer.model.state_dict(),
-                    optimizer=trainer.optimizer.state_dict(),
-                    key_seed=trainer.key.initial_seed(),
-                    key_state=trainer.key.get_state(),
-                    epoch=epoch, best=stopper.best, count=stopper.count,
-                    stopped=stopped)
+        st = dict(model=trainer.model.state_dict(),
+                  optimizer=trainer.optimizer.state_dict(),
+                  key_seed=trainer.key.initial_seed(),
+                  key_state=trainer.key.get_state(),
+                  epoch=epoch, best=stopper.best, count=stopper.count,
+                  stopped=stopped)
+        for name in extra:
+            st[name] = getattr(trainer, name)
+        return st
 
     start_epoch = 0
     if checkpoint_dir is not None and latest_step(checkpoint_dir) is not None:
-        trainer.ensure_init(g.to(trainer.device))
+        trainer.ensure_init(g)
         st = restore_checkpoint(checkpoint_dir, map_location=trainer.device)
         trainer.model.load_state_dict(st["model"])
         trainer.optimizer.load_state_dict(st["optimizer"])
         trainer.key = rng.key(st["key_seed"], device=trainer.device)
         trainer.key.set_state(st["key_state"].cpu())
+        for name in extra:
+            setattr(trainer, name, st[name])
         stopper.best, stopper.count = st["best"], st["count"]
         start_epoch = max_epochs if st["stopped"] else st["epoch"] + 1
 
     losses = []
     for epoch in range(start_epoch, max_epochs):
-        loss = trainer.train_epoch(g)
+        loss = (trainer.train_epoch(g, epoch=epoch) if wants_epoch
+                else trainer.train_epoch(g))
         losses.append(loss)
-        if verbose and epoch % 50 == 0:
+        if verbose and epoch % log_every == 0:
             print(f"epoch {epoch}: loss {loss:.4f}")
         stop = stopper.update(loss)
         if checkpoint_dir is not None and (

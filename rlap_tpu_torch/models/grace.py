@@ -18,7 +18,8 @@ from torch import nn
 from rlap_tpu_torch import resolve_device
 from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.core.graph import Graph
-from rlap_tpu_torch.models.common import checkpointed_fit, torch_adam
+from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
+                                          torch_adam)
 from rlap_tpu_torch.nn.gcn import GCNEncoder, ProjectionHead
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
 
@@ -77,10 +78,9 @@ class GraceTrainer:
         so they do not depend on the device."""
         if self.model is not None:
             return
-        self.key, k = rng.split(self.key)
-        init = rng.key(k.initial_seed(), device="cpu")
         self.model = GRACE(g.x.shape[1], self.hidden_dim, self.num_layers,
-                           self.hidden_dim, generator=init).to(self.device)
+                           self.hidden_dim,
+                           generator=init_generator(self)).to(self.device)
         self.optimizer = torch_adam(self.model.parameters(), self.lr,
                                     self.weight_decay)
 

@@ -19,18 +19,21 @@ from rlap_tpu_torch.nn.layers import PReLU, _dense
 from rlap_tpu_torch.ops.spmm import gcn_norm, spmm
 
 class GCNConv(nn.Module):
-    """x @ W (glorot-uniform, no bias), symmetric normalisation with
-    self-loops, SpMM aggregation, then a zero-initialised bias."""
+    """x @ W (glorot-uniform, no bias), symmetric normalisation (with
+    self-loops unless `add_self_loops` is False), SpMM aggregation, then a
+    zero-initialised bias."""
 
     def __init__(self, in_dim: int, out_dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 add_self_loops: bool = True):
         super().__init__()
         self.lin = nn.Linear(in_dim, out_dim, bias=False)
         nn.init.xavier_uniform_(self.lin.weight, generator=generator)
         self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.add_self_loops = add_self_loops
 
     def forward(self, g: Graph, x: torch.Tensor) -> torch.Tensor:
-        gl, wn = gcn_norm(g)
+        gl, wn = gcn_norm(g, add_self_loops=self.add_self_loops)
         return spmm(gl, self.lin(x), edge_weights=wn) + self.bias
 
 

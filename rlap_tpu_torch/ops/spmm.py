@@ -38,15 +38,17 @@ def sddmm(g: Graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (_pad_row(a)[g.senders] * _pad_row(b)[g.receivers]).sum(-1)
 
 
-def gcn_norm(g: Graph) -> tuple:
-    """Symmetric GCN normalisation w_e / sqrt(d_s d_r): self-loops of
-    weight 1 replace any present and count in the degree, which is summed
-    over senders. (The JAX package's `add_self_loops=False` and `improved`
-    options have no caller on this path yet.)
+def gcn_norm(g: Graph, add_self_loops: bool = True) -> tuple:
+    """Symmetric GCN normalisation w_e / sqrt(d_s d_r), the degree summed
+    over senders. With `add_self_loops`, self-loops of weight 1 replace
+    any present and count in the degree; without, the graph is taken as
+    it is (CCA-SSG adds its loops to the views itself). (The JAX
+    package's `improved` option has no caller.)
 
     Returns (graph_with_loops, normalized_edge_weights).
     """
-    g = G.add_self_loops(G.remove_self_loops(g))
+    if add_self_loops:
+        g = G.add_self_loops(G.remove_self_loops(g))
     deg = G.weighted_degrees(g)
     dinv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)),
                        torch.zeros_like(deg))

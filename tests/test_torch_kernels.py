@@ -277,3 +277,28 @@ def test_probe_entry_point_runs_on_the_cpu():
         assert row["max_abs_err"] == 0 and row["launches"] == 0
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert any(line.startswith("A1 ") for line in lines)
+
+
+@pytest.mark.cuda
+def test_cli_grace_launches_the_kernels_on_the_card(tmp_path, monkeypatch):
+    """The recipe CLI with no device= trains GRACE on the card through the
+    three kernels, each twice an epoch, at a ragged node count."""
+    _needs_card()
+    from rlap_tpu_torch.cli.run import run_one
+    from rlap_tpu_torch.data import loaders as L
+    from rlap_tpu_torch.utils.config import ExperimentConfig
+    from rlap_tpu_torch.utils.logging import read_metrics
+
+    monkeypatch.setitem(L._SYN_SHAPES, "CORA", (301, 4, 64))
+    monkeypatch.setenv("RLAP_TPU_DATA", str(tmp_path / "no-datasets"))
+    cfg = ExperimentConfig(recipe="grace", dataset="CORA", augmentor="rLap",
+                           hidden_dim=32, max_epochs=3, tolerance=10)
+    before = dict(K.launch_counts)
+    run_one(cfg, results_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    assert all(K.launch_counts[k] - before[k] == 6 for k in K.KERNELS)
+    recs = list(read_metrics(str(tmp_path / f"{cfg.run_name()}.jsonl")))
+    (test_run,) = [r for r in recs if r["event"] == "test_run"]
+    assert 0 <= test_run["accuracy"] <= 1
+    loss = [r["value"] for r in recs if r.get("name") == "final_loss"]
+    assert np.isfinite(loss).all()
