@@ -16,9 +16,10 @@
 3. Holds each InfoNCE kernel against its plain PyTorch version: n=2048
    f=128 and ragged n=1000 f=100, masked and unmasked, tau 0.2 and 0.5;
    the ragged shapes n=70 f=300, n=129 f=100, n=4097 f=72, n=500 f=50
-   (rows not 16-byte aligned) and n=333 f=1000; and the main path's
-   shape. Values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4
-   / atol 1e-6. Times each kernel and its plain version with CUDA events,
+   (rows not 16-byte aligned) and n=333 f=1000; the main path's shape;
+   and the CLI phase's GRACE shape, n=19717 f=128, masked and unmasked.
+   Values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4 /
+   atol 1e-6. Times each kernel and its plain version with CUDA events,
    and the forward beside the yardstick F.cross_entropy(a @ b.T / tau,
    arange(n)) at n=16384, which it must beat. On alike rows (spread 0.03
    and 0.003), and for one training step on a small graph, holds the
@@ -54,7 +55,8 @@
    runs; both views must keep at least 8192 nodes; the PPR build is
    timed); CCA-SSG on the CORA stand-in with rLap views; GraphCL and BGRL
    on the MUTAG stand-in with rLap views. Each run's JSONL must hold every
-   event, finite losses and accuracies in [0, 1]. Then every one of the
+   event, finite losses and accuracies in [0, 1]; each epoch is timed
+   on its own, apart from the trainer's set-up. Then every one of the
    17 registry names and the 10 CCA-SSG functions builds views of the
    CORA stand-in (n=2708, f=512) on the card, each checked (indices in
    range, padding = sentinel with weight 0, symmetric unless a diffusion
@@ -70,6 +72,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import functools
 import json
 import math
 import os
@@ -97,7 +101,10 @@ from rlap_tpu_torch.core import graph as G
 from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.data.loaders import load_dataset
 from rlap_tpu_torch.data.synthetic import barabasi_albert
+from rlap_tpu_torch.models.bgrl import BGRLTrainer
+from rlap_tpu_torch.models.cca_ssg import CCASSGTrainer
 from rlap_tpu_torch.models.grace import GraceTrainer
+from rlap_tpu_torch.models.graphcl import GraphCLTrainer
 from rlap_tpu_torch.models.mvgrl import MVGRLTrainer
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
 from rlap_tpu_torch.ops import _build
@@ -123,6 +130,9 @@ RAGGED_N, RAGGED_E, RAGGED_M = 1000, 12_345, 97
 # aligned; eight feature chunks
 RAGGED_CASES = ((70, 300, 0.2), (129, 100, 0.2), (4097, 72, 0.2),
                 (500, 50, 0.5), (333, 1000, 0.2))
+# the rows of the PUBMED stand-in, which the CLI phase's GRACE run feeds the
+# InfoNCE kernels at f=128: five rows past a whole block of 32
+CLI_GRACE_N = 19717
 REPLACES = {
     "infonce_fwd": "rlap_tpu/ops/infonce_pallas.py:37",
     "infonce_bwd_da": "rlap_tpu/ops/infonce_pallas.py:86",
@@ -292,6 +302,9 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
         check_case(n, f, True, tau, errs, seed)
     check_autograd(1000, 100, 0.2, 99)
     check_case(n_main, f_main, False, 0.2, errs, 100)
+    for masked in (False, True):
+        seed += 1
+        check_case(CLI_GRACE_N, f_main, masked, 0.2, errs, seed)
     check_against_float64(20000, f_main, 0.03, 101,
                           bars={name: 1e-4 for name in K.KERNELS})
     # rows nearly equal: the plain float32 sums lose 1e-4 here, and dB's
@@ -563,13 +576,46 @@ NOT_SYMMETRIC = ("PPRDiffusion", "MarkovDiffusion", "rLapPPRDiffusion",
                  "markovd", "pprd", "ed_deg", "ed_ppr", "ed_evc")
 
 
+TRAINERS = (GraceTrainer, MVGRLTrainer, CCASSGTrainer, GraphCLTrainer,
+            BGRLTrainer)
+
+
+@contextlib.contextmanager
+def epoch_times():
+    """Yields a list that receives the ms of every `train_epoch` call of
+    the recipes' trainers, between two synchronisations of the card."""
+    times, saved = [], {cls: cls.train_epoch for cls in TRAINERS}
+
+    def timed(fn):
+        @functools.wraps(fn)  # keeps the signature checkpointed_fit reads
+        def run(*args, **kw):
+            t = sync_s()
+            out = fn(*args, **kw)
+            times.append(1e3 * (sync_s() - t))
+            return out
+        return run
+
+    for cls, fn in saved.items():
+        cls.train_epoch = timed(fn)
+    try:
+        yield times
+    finally:
+        for cls, fn in saved.items():
+            cls.train_epoch = fn
+
+
 def cli_run(cfg: ExperimentConfig, results_dir: str) -> dict:
     """One `run_one` on the card; checks its JSONL and returns the
-    recipe's numbers. ms per epoch is the time between the `dataset` and
-    `final_loss` events over the epochs run: trainer set-up and the
-    epochs, the first view's one-time costs included."""
+    recipe's numbers. Each epoch is timed on its own: the first carries
+    the one-time costs of the views (MVGRL's PPR build), `steady_epoch_ms`
+    is the mean of the others, and `setup_ms` is what the trainer spends
+    between the `dataset` and `final_loss` events outside its epochs
+    (building the model and the augmentors). `load_s` is the time to the
+    `dataset` event, `probes_s` the time after `final_loss`: the linear
+    probes on the raw features and on the embeddings."""
     t = sync_s()
-    run_one(cfg, results_dir=results_dir)
+    with epoch_times() as epoch_ms:
+        run_one(cfg, results_dir=results_dir)
     wall = sync_s() - t
     recs = list(read_metrics(f"{results_dir}/{cfg.run_name()}.jsonl"))
     events = {r["event"] if r["event"] != "metric"
@@ -586,11 +632,17 @@ def cli_run(cfg: ExperimentConfig, results_dir: str) -> dict:
         cfg.max_epochs, CLI_EPOCHS), f"{cfg.recipe}: final loss {loss}")
     acc = by["test_run"][0]["accuracy"]
     require(0.0 <= acc <= 1.0, f"{cfg.recipe}: accuracy {acc}")
-    fit_s = loss["ts"] - by["dataset"][0]["ts"]
+    require(len(epoch_ms) == epochs,
+            f"{cfg.recipe}: {len(epoch_ms)} epochs timed, {epochs} logged")
+    fit_ms = 1e3 * (loss["ts"] - by["dataset"][0]["ts"])
     out = {"dataset": cfg.dataset, "augmentor": cfg.augmentor,
            "wall_s": wall, "run_wall_seconds":
                by["metric:wall_seconds"][0]["value"],
-           "epochs": epochs, "ms_per_epoch": 1e3 * fit_s / epochs,
+           "epochs": epochs, "epoch_ms": epoch_ms,
+           "steady_epoch_ms": sum(epoch_ms[1:]) / max(epochs - 1, 1),
+           "setup_ms": fit_ms - sum(epoch_ms),
+           "load_s": by["dataset"][0]["ts"] - by["config"][0]["ts"],
+           "probes_s": by["metric:wall_seconds"][0]["ts"] - loss["ts"],
            "final_loss": loss["value"], "test_accuracy": acc,
            "raw_feature_baseline": by["raw_feature_baseline"][0]["accuracy"]
            if "raw_feature_baseline" in by else None}
@@ -679,7 +731,7 @@ def cli_phase() -> tuple:
             recipe="grace", dataset="PUBMED", augmentor="EdgeDroppingPR",
             **base), tmp)
         launches = dict(K.launch_counts)
-        require(summary["grace"]["num_nodes"] == 19717,
+        require(summary["grace"]["num_nodes"] == CLI_GRACE_N,
                 f"PUBMED stand-in has {summary['grace']['num_nodes']} nodes")
         for name in K.KERNELS:
             require(launches[name] == 2 * CLI_EPOCHS,
@@ -711,7 +763,8 @@ def cli_phase() -> tuple:
         summary["registry"] = registry_sweep()
         del os.environ["RLAP_TPU_DATA"]
 
-    # the kernels at GRACE's shape in the CLI run (not counted above)
+    # the kernels at GRACE's shape in the CLI run (not counted above; the
+    # kernel phase holds them against their plain versions at this shape)
     n, f = summary["grace"]["num_nodes"], 128
     a, b, _m, g = inputs(n, f, False, 11)
     _, lse = K.infonce_fwd_plain(a, b, 0.2)

@@ -68,13 +68,6 @@ class Graph:
         return dataclasses.replace(self, **changes)
 
     def to(self, device) -> "Graph":
-        """The graph on `device`: `self` when it is there already, so
-        that caches keyed on the graph object hold across calls."""
-        dev = torch.device(device)
-        if dev.type == self.device.type and dev.index in (
-                None, self.device.index):
-            return self
-
         def mv(t):
             return None if t is None else t.to(device)
         return self.replace(senders=mv(self.senders),

@@ -101,6 +101,7 @@ class CCASSGTrainer:
         self.key = rng.key(seed, device=self.device)
         self.model: Optional[CCASSG] = None
         self.optimizer: Optional[torch.optim.Adam] = None
+        self._placed: tuple = (None, None)  # (graph given, it on device)
 
     def ensure_init(self, g: Graph) -> None:
         if self.model is not None:
@@ -126,8 +127,16 @@ class CCASSGTrainer:
         self.optimizer.step()
         return float(loss.detach())
 
+    def on_device(self, g: Graph) -> Graph:
+        """`g` on the trainer's device, the same object each time it is
+        given the same `g`: the diffusion functions cache their view on
+        the graph object, as the JAX package does."""
+        if self._placed[0] is not g:
+            self._placed = (g, g.to(self.device))
+        return self._placed[1]
+
     def train_epoch(self, g: Graph) -> float:
-        return self.train_step(*self.views(g.to(self.device)))
+        return self.train_step(*self.views(self.on_device(g)))
 
     def fit(self, g: Graph, max_epochs: int = 100, verbose: bool = False,
             tolerance: int = 10**9, checkpoint_dir: Optional[str] = None,

@@ -397,6 +397,32 @@ def test_cca_ssg_learns(node_data):
     assert tr.evaluate(g, y)["accuracy"] > 0.4
 
 
+@pytest.mark.parametrize("name, cls", [("markovd", "MarkovDiffusion"),
+                                       ("pprd", "PPRDiffusion")])
+def test_cca_ssg_builds_a_diffusion_once_per_graph(name, cls, node_data,
+                                                   monkeypatch):
+    """The trainer hands its augmentor one graph object per dataset, so
+    the diffusion functions' cache holds across epochs; a new graph
+    object builds the diffusion anew."""
+    from rlap_tpu_torch.augment import cca_registry as CR
+
+    g, _y = node_data
+    built, inner = [], getattr(CR, cls)
+
+    def counting(*args, **kw):
+        built.append(cls)
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(CR, cls, counting)
+    monkeypatch.setattr(CR, f"_{name.upper()}_CACHE", [None, None])
+    tr = CCASSGTrainer(make_cca_augmentor(name, 0.2, 0.2), hidden_dim=16,
+                       out_dim=16, seed=0, **CPU)
+    assert np.isfinite(tr.fit(g, max_epochs=3)).all()
+    assert built == [cls]
+    tr.train_epoch(g.replace())
+    assert built == [cls, cls]
+
+
 def test_graphcl_learns(graph_data):
     graphs, y = graph_data
     tr = GraphCLTrainer(*_views(EdgeRemoving(0.2))[::-1], hidden_dim=16,
