@@ -45,8 +45,23 @@
    128-d features, 1 warm-up and 3 timed steps, with the InfoNCE counts
    set to 0 just before and read just after, and checks that each view
    removed int(0.2 n) nodes, that the losses are finite, and that each
-   InfoNCE kernel ran twice per step.
-7. The recipe CLI phase, through `rlap_tpu_torch.cli.run.run_one` with no
+   InfoNCE kernel ran twice per step. Then one more step under the
+   profiler (`rlap_tpu_torch.utils.tracing`), with spans around the views,
+   the forward, the loss, the backward and the Adam update: from its
+   Chrome trace, the card's busy time (the union of kernel, memcpy and
+   memset intervals in the step's span), its idle share and the five
+   device ops with the most time. The trace must hold CUDA kernels and an
+   InfoNCE kernel. A small profiled region runs first, so that CUPTI's
+   start-up is not in the step.
+7. Bench phase, at the main path's n: `rlap_tpu_torch.bench.
+   rlap_throughput.run` (edges/s of `eliminate` at t = n/2 against the
+   C++ oracle on the host, built from `rlap_tpu_torch/native/oracle.cc`;
+   each call must remove n/2 nodes) and `rlap_tpu_torch.bench.epoch.run`
+   (GRACE epochs with separate and with paired rLap views, 3 timed after
+   the first), with the InfoNCE counts set to 0 just before and read just
+   after: each kernel twice an epoch in both variants, and every view must
+   remove int(0.2 n) nodes.
+8. The recipe CLI phase, through `rlap_tpu_torch.cli.run.run_one` with no
    `device=` (the synthetic stand-ins, as no dataset files are there):
    GRACE on the PUBMED stand-in (n=19717, f=500) with EdgeDroppingPR
    views, hidden 128, 3 epochs, with the InfoNCE counts set to 0 just
@@ -56,14 +71,19 @@
    timed); CCA-SSG on the CORA stand-in with rLap views; GraphCL and BGRL
    on the MUTAG stand-in with rLap views. Each run's JSONL must hold every
    event, finite losses and accuracies in [0, 1]; each epoch is timed
-   on its own, apart from the trainer's set-up. Then every one of the
+   on its own, apart from the trainer's set-up; MVGRL's last epoch is
+   run once more afterwards under the profiler, for its idle share and
+   top device ops. Then every one of the
    17 registry names and the 10 CCA-SSG functions builds views of the
    CORA stand-in (n=2708, f=512) on the card, each checked (indices in
    range, padding = sentinel with weight 0, symmetric unless a diffusion
-   or an adaptive drop, finite weights) and timed; and the InfoNCE
-   kernels are timed at GRACE's shape, n=19717, f=128.
-8. Prints one JSON line of the probe, one of the main path, one of the
-   CLI phase, one of all eleven kernels, the nvidia-smi line, and last
+   or an adaptive drop, finite weights) and timed, and
+   `rlap_tpu_torch.bench.augmentors.bench_all` measures each name's
+   latency and device memory there; and the InfoNCE kernels are timed at
+   GRACE's shape, n=19717, f=128.
+9. Prints one JSON line of the probe, one of the main path, one of each
+   bench, one of the CLI phase, one of all eleven kernels, the nvidia-smi
+   line, and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
    exits non-zero.
 """
@@ -94,7 +114,10 @@ from rlap_tpu_torch.augment.feature import FeatureMasking
 from rlap_tpu_torch.augment.registry import (AUGMENTOR_NAMES,
                                              make_augmentor_pair)
 from rlap_tpu_torch.augment.rlap import RLap
+from rlap_tpu_torch.bench import augmentors as AB
+from rlap_tpu_torch.bench import epoch as EB
 from rlap_tpu_torch.bench import probe_access as P
+from rlap_tpu_torch.bench import rlap_throughput as RT
 from rlap_tpu_torch.bench.time_infonce import cuda_ms
 from rlap_tpu_torch.cli.run import run_one
 from rlap_tpu_torch.core import graph as G
@@ -112,6 +135,7 @@ from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
 from rlap_tpu_torch.ops.rlap import (_entry, _select, approximate_cholesky,
                                      eliminate)
+from rlap_tpu_torch.utils import tracing
 from rlap_tpu_torch.utils.config import ExperimentConfig
 from rlap_tpu_torch.utils.logging import read_metrics
 
@@ -496,6 +520,63 @@ def make_graph(n: int, f: int):
     return g
 
 
+def profiled(label: str, body, phases=(), must_hold=None) -> dict:
+    """Run `body()` once under `tracing.trace`, in a span named `label`
+    that ends with a synchronisation of the card, and read the card's work
+    in that span from the trace (and in each span of `phases` that `body`
+    annotates; work queued in one of those may run into the next). CUPTI
+    starts on the first profiled region, so a small one runs first. Fails
+    if the span holds no CUDA kernel, or no kernel whose name holds
+    `must_hold`: a trace that lost the card must not pass."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with tracing.trace(os.path.join(tmp, "warm-up")):
+            torch.ones(1 << 20, device="cuda").sum()
+            torch.cuda.synchronize()
+        with tracing.trace(tmp):
+            t = sync_s()
+            with tracing.annotate(label):
+                body()
+                torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        path = os.path.join(tmp, "trace.json")
+        res = tracing.device_time(path, label)
+        parts = {p: tracing.device_time(path, p) for p in phases}
+    require(res["kernels"] > 0, f"{label}: no CUDA kernel in the trace")
+    if must_hold is not None:
+        require(any(must_hold in op["name"] for op in res["ops"]),
+                f"{label}: no device op named *{must_hold}* in the trace")
+    return {"traced_wall_ms": wall, "span_ms": res["span_ms"],
+            "device_busy_ms": res["device_busy_ms"],
+            "device_idle_share": res["device_idle_share"],
+            "device_kernels": res["kernels"],
+            "top_device_ops": res["top_device_ops"],
+            "phases": {p: {k: r[k] for k in ("span_ms", "device_busy_ms",
+                                             "device_idle_share")}
+                       for p, r in parts.items()}}
+
+
+STEP_PHASES = ("views", "forward", "loss", "backward", "adam")
+
+
+def traced_step(tr, g) -> dict:
+    """One more main-path step under the profiler, each part in a span."""
+
+    def step():
+        tr.optimizer.zero_grad(set_to_none=True)
+        with tracing.annotate("views"):
+            g1, g2 = tr.views(g)
+        with tracing.annotate("forward"):
+            h1, h2 = tr.model(g1, g2)
+        with tracing.annotate("loss"):
+            loss = tr.contrast(h1, h2, node_mask=g1.node_mask)
+        with tracing.annotate("backward"):
+            loss.backward()
+        with tracing.annotate("adam"):
+            tr.optimizer.step()
+
+    return profiled("main_path_step", step, STEP_PHASES, must_hold="infonce")
+
+
 def main_path(g, f: int) -> tuple:
     n, edges = g.num_nodes, int(g.num_edges)
     num_remove = int(FRAC * n)
@@ -546,12 +627,17 @@ def main_path(g, f: int) -> tuple:
     tr.optimizer.step()
     t_opt = sync_s()
     tr.optimizer.zero_grad(set_to_none=True)
+    traced = traced_step(tr, g)
+    step_ms = [v + s for v, s in zip(view_ms, train_ms)]
+    print(f"traced step: {traced['traced_wall_ms']} ms under the profiler, "
+          f"untraced steps {step_ms} ms; device idle share "
+          f"{traced['device_idle_share']}", flush=True)
     summary = {
         "n": n, "m": 8, "f": f, "directed_edges": edges,
         "num_remove": num_remove, "steps": STEPS, "losses": losses,
         "warmup_step_s": warm_s,
         "views_ms": view_ms, "train_step_ms": train_ms,
-        "step_ms": [v + s for v, s in zip(view_ms, train_ms)],
+        "step_ms": step_ms,
         "rlap_one_view_ms": rlap_ms, "rlap_rounds_one_view": rounds,
         "encoder_fwd_ms": 1e3 * (t_enc - t),
         "loss_fwd_ms": 1e3 * (t_loss - t_enc),
@@ -559,8 +645,46 @@ def main_path(g, f: int) -> tuple:
         "adam_ms": 1e3 * (t_opt - t_bwd),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches,
+        "device_busy_ms": traced["device_busy_ms"],
+        "device_idle_share": traced["device_idle_share"],
+        "top_device_ops": traced["top_device_ops"],
+        "traced_step": traced,
     }
     return summary, launches
+
+
+BENCH_EPOCHS = 3
+
+
+def bench_phase(n: int) -> dict:
+    """The port's two benches at the main path's size, in this process:
+    `rlap_throughput.run` (each call must remove n/2 nodes) and
+    `epoch.run` at 3 timed epochs, with the InfoNCE counts set to 0 just
+    before and read just after; each kernel must run twice an epoch in
+    both variants, the first epoch included, and every view must remove
+    int(0.2 n) nodes. Prints both results; returns the launches of each
+    variant."""
+    thr = RT.run(n=n, device="cuda", reps=5)
+    require(thr["removed"] == min(n // 2, n - 1) and thr["device"] ==
+            torch.cuda.get_device_name(0), f"rlap_throughput: {thr}")
+    print(json.dumps({"rlap_throughput": thr}), flush=True)
+    K.reset_launch_counts()
+    ep = EB.run(n=n, frac=FRAC, epochs=BENCH_EPOCHS, device="cuda")
+    launches = dict(K.launch_counts)
+    by_variant = {v: ep[f"infonce_launches_{v}"]
+                  for v in ("separate", "paired")}
+    for name in K.KERNELS:
+        for v, counts in by_variant.items():
+            require(counts[name] == 2 * (BENCH_EPOCHS + 1),
+                    f"epoch bench {v}: {name} launched {counts[name]} times "
+                    f"in {BENCH_EPOCHS + 1} epochs")
+        require(launches[name] == sum(c[name] for c in by_variant.values()),
+                f"epoch bench: {name} launched {launches[name]} times")
+    require(ep["removed_per_view"] == int(FRAC * n)
+            and ep["views_checked"] == 4 * (2 * BENCH_EPOCHS + 1),
+            f"epoch bench views: {ep}")
+    print(json.dumps({"epoch_bench": ep}), flush=True)
+    return by_variant
 
 
 CLI_EPOCHS = 3
@@ -582,9 +706,11 @@ TRAINERS = (GraceTrainer, MVGRLTrainer, CCASSGTrainer, GraphCLTrainer,
 
 @contextlib.contextmanager
 def epoch_times():
-    """Yields a list that receives the ms of every `train_epoch` call of
-    the recipes' trainers, between two synchronisations of the card."""
-    times, saved = [], {cls: cls.train_epoch for cls in TRAINERS}
+    """Yields (times, calls): `times` receives the ms of every
+    `train_epoch` call of the recipes' trainers, between two
+    synchronisations of the card, and `calls` the call itself (the
+    unwrapped method and its arguments, trainer first)."""
+    times, calls, saved = [], [], {cls: cls.train_epoch for cls in TRAINERS}
 
     def timed(fn):
         @functools.wraps(fn)  # keeps the signature checkpointed_fit reads
@@ -592,19 +718,21 @@ def epoch_times():
             t = sync_s()
             out = fn(*args, **kw)
             times.append(1e3 * (sync_s() - t))
+            calls.append((fn, args, kw))
             return out
         return run
 
     for cls, fn in saved.items():
         cls.train_epoch = timed(fn)
     try:
-        yield times
+        yield times, calls
     finally:
         for cls, fn in saved.items():
             cls.train_epoch = fn
 
 
-def cli_run(cfg: ExperimentConfig, results_dir: str) -> dict:
+def cli_run(cfg: ExperimentConfig, results_dir: str,
+            traced: bool = False) -> dict:
     """One `run_one` on the card; checks its JSONL and returns the
     recipe's numbers. Each epoch is timed on its own: the first carries
     the one-time costs of the views (MVGRL's PPR build), `steady_epoch_ms`
@@ -612,9 +740,11 @@ def cli_run(cfg: ExperimentConfig, results_dir: str) -> dict:
     between the `dataset` and `final_loss` events outside its epochs
     (building the model and the augmentors). `load_s` is the time to the
     `dataset` event, `probes_s` the time after `final_loss`: the linear
-    probes on the raw features and on the embeddings."""
+    probes on the raw features and on the embeddings. With `traced`, the
+    run's last epoch is run once more afterwards, on the trained trainer
+    and under the profiler (`traced_epoch`)."""
     t = sync_s()
-    with epoch_times() as epoch_ms:
+    with epoch_times() as (epoch_ms, calls):
         run_one(cfg, results_dir=results_dir)
     wall = sync_s() - t
     recs = list(read_metrics(f"{results_dir}/{cfg.run_name()}.jsonl"))
@@ -648,6 +778,12 @@ def cli_run(cfg: ExperimentConfig, results_dir: str) -> dict:
            if "raw_feature_baseline" in by else None}
     if "dataset" in by and "num_nodes" in by["dataset"][0]:
         out["num_nodes"] = by["dataset"][0]["num_nodes"]
+    if traced:
+        fn, args, kw = calls[-1]
+        prof = profiled("epoch", lambda: fn(*args, **kw))
+        out["traced_epoch"] = prof
+        out["device_idle_share"] = prof["device_idle_share"]
+        out["top_device_ops"] = prof["top_device_ops"]
     print(f"cli {cfg.recipe}: {json.dumps(out)}", flush=True)
     return out
 
@@ -696,7 +832,18 @@ def registry_sweep() -> dict:
         check_view(name, g, out)
     print(f"registry views of the CORA stand-in (n={g.num_nodes}, "
           f"f={g.x.shape[1]}), ms per view: {json.dumps(ms)}", flush=True)
-    return {"n": g.num_nodes, "f": g.x.shape[1], "view_ms": ms}
+    # the augmentor bench on the same graph: latency over 3 calls and the
+    # device memory of one, from the caching allocator
+    bench = {}
+    for name, r in AB.bench_all(g, repeats=3).items():
+        require(r["latency_ms_mean"] > 0 and r["peak_hbm_bytes"]
+                >= r["hbm_args_bytes"] > 0, f"augmentor bench {name}: {r}")
+        bench[name] = {k: r[k] for k in ("latency_ms_mean", "peak_hbm_bytes",
+                                         "hbm_out_bytes", "hbm_temp_bytes")}
+    print(f"augmentor bench on the CORA stand-in: {json.dumps(bench)}",
+          flush=True)
+    return {"n": g.num_nodes, "f": g.x.shape[1], "view_ms": ms,
+            "augmentor_bench": bench}
 
 
 def cli_phase() -> tuple:
@@ -744,7 +891,7 @@ def cli_phase() -> tuple:
         try:
             summary["mvgrl"] = cli_run(ExperimentConfig(
                 recipe="mvgrl", dataset="PUBMED", augmentor="PPRDiffusion",
-                **base), tmp)
+                **base), tmp, traced=True)
         finally:
             MVGRLTrainer.views, PPRDiffusion.augment = views, augment
         require(len(ppr_ms) == 1, f"PPR built {len(ppr_ms)} times")
@@ -838,6 +985,10 @@ def main(argv=None) -> int:
     del g
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    bench_launches = bench_phase(args.n)
+    print(f"bench phase: {time.perf_counter() - t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     cli, cli_launches = cli_phase()
     cli["phase_s"] = time.perf_counter() - t
     print(json.dumps({"cli": cli}), flush=True)
@@ -845,8 +996,11 @@ def main(argv=None) -> int:
     kernels = [{"name": name, "route": "cuda",
                 "source": "rlap_tpu_torch/csrc/infonce.cu",
                 "replaces": REPLACES[name], "launches": launches[name],
-                "launches_by_path": {"grace_main_path": launches[name],
-                                     "cli_grace_pubmed": cli_launches[name]},
+                "launches_by_path": {
+                    "grace_main_path": launches[name],
+                    "epoch_bench_separate": bench_launches["separate"][name],
+                    "epoch_bench_paired": bench_launches["paired"][name],
+                    "cli_grace_pubmed": cli_launches[name]},
                 "n": args.n, "f": f, **rows[name]}
                for name in K.KERNELS]
     for name in A.KERNELS:

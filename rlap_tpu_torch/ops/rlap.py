@@ -131,6 +131,8 @@ def _sample_clique(owner, other, v, o_v: str, gen,
     emitted clique edges as (emit mask, partner, weight float64)."""
     m = owner.shape[0]
     dev = owner.device
+    if m == 0:  # every node of the round had no edge: nothing to sample
+        return torch.zeros(0, dtype=torch.bool, device=dev), other, v
     head = torch.ones(m, dtype=torch.bool, device=dev)
     head[1:] = owner[1:] != owner[:-1]
     col = torch.cumsum(head.long(), 0) - 1

@@ -302,3 +302,19 @@ def test_cli_grace_launches_the_kernels_on_the_card(tmp_path, monkeypatch):
     assert 0 <= test_run["accuracy"] <= 1
     loss = [r["value"] for r in recs if r.get("name") == "final_loss"]
     assert np.isfinite(loss).all()
+
+
+@pytest.mark.cuda
+def test_rlap_throughput_bench_on_the_card():
+    """`rlap_throughput.run` at n=20000 on the card: every call removes
+    n/2 nodes, and the result holds bench.py's keys and names the card."""
+    _needs_card()
+    from rlap_tpu_torch.bench import rlap_throughput as RT
+
+    res = RT.run(n=20000, reps=2)
+    assert res["removed"] == 10000 and len(res["rounds"]) == 2
+    assert res["metric"] == "rlap_edges_per_s" and res["unit"] == "edges/s"
+    assert res["value"] > 0 and res["vs_baseline"] > 0
+    assert len(res["oracle_s"]) == 5
+    assert res["device"] == torch.cuda.get_device_name(0)
+    assert res["card"].startswith(res["device"])

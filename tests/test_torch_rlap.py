@@ -123,6 +123,26 @@ def test_eliminate_pair_equals_two_singles():
     assert not torch.equal(views[0][0].senders, views[1][0].senders)
 
 
+@pytest.mark.parametrize("o_v,sampler", [("degree", "independent"),
+                                         ("coarsen", "independent"),
+                                         ("degree", "race")])
+def test_rounds_of_nodes_without_edges(o_v, sampler):
+    """With o_v "degree" or "coarsen" the nodes without edges go first, so
+    a round can eliminate only such nodes and touch no edge; it removes
+    them and leaves the graph as it was (the oracle counts them too)."""
+    g = _ba(50, 2, 4)
+    g = G.Graph.from_edges(g.senders[g.edge_mask], g.receivers[g.edge_mask],
+                           num_nodes=60, device="cpu")
+    out, removed, rounds = eliminate(g, rng.key(3, device="cpu"), 10,
+                                     o_v=o_v, sampler=sampler)
+    assert removed == 10 and rounds >= 1
+    np.testing.assert_array_equal(_dense(out), _dense(g))
+    out, removed, _ = eliminate(g, rng.key(3, device="cpu"), 20, o_v=o_v,
+                                sampler=sampler)
+    assert removed == 20
+    assert int((G.degrees(out) == 0).sum()) == 20
+
+
 def test_rejects_unknown_modes():
     g = _ba(20, 2, 0)
     for kw in ({"o_v": "x"}, {"o_n": "x"}, {"schedule": "x"}):
