@@ -81,9 +81,23 @@
    `rlap_tpu_torch.bench.augmentors.bench_all` measures each name's
    latency and device memory there; and the InfoNCE kernels are timed at
    GRACE's shape, n=19717, f=128.
-9. Prints one JSON line of the probe, one of the main path, one of each
-   bench, one of the CLI phase, one of all eleven kernels, the nvidia-smi
-   line, and last
+9. The sharded phase (`rlap_tpu_torch.parallel`), at the main path's
+   BA(n, m=8), f=128, in spawned ranks: world 1 over NCCL, then world 2
+   on the one card over gloo with CUDA tensors (NCCL takes one card a
+   rank). At each, in the same ranks, the dry run of `dryrun_multichip`
+   (the distributed rLap at n=4096, then 3 GRACE steps whose views come
+   from `eliminate_sharded`, with the InfoNCE counts of each rank set to 0
+   just before the steps and read just after: each kernel twice a step;
+   losses and parameters equal on every rank), and `sharded_checks`: the
+   sharded `spmm` against the local one, 3 `GraceTrainer(mesh=...)` steps
+   against the local trainer's losses, and a sharded rLap view (t = 0.2 n)
+   and call (t = n/2), each removing exactly t nodes with a symmetric,
+   positive union of the shards that keeps no eliminated node. Prints
+   each rank's step, views and rLap ms a view, and the edges/s of the
+   t = n/2 call beside the single-device `eliminate`'s.
+10. Prints one JSON line of the probe, one of the main path, one of each
+   bench, one of the CLI phase, one of the sharded phase, one of all
+   eleven kernels, the nvidia-smi line, and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
    exits non-zero.
 """
@@ -135,6 +149,13 @@ from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
 from rlap_tpu_torch.ops.rlap import (_entry, _select, approximate_cholesky,
                                      eliminate)
+from rlap_tpu_torch.ops.spmm import gcn_norm, spmm
+from rlap_tpu_torch.parallel import dryrun as DR
+from rlap_tpu_torch.parallel.launch import launch
+from rlap_tpu_torch.parallel.mesh import (broadcast_graph, make_mesh,
+                                          shard_graph)
+from rlap_tpu_torch.parallel.partition import partition_edges_by_sender
+from rlap_tpu_torch.parallel.rlap_dist import eliminate_sharded
 from rlap_tpu_torch.utils import tracing
 from rlap_tpu_torch.utils.config import ExperimentConfig
 from rlap_tpu_torch.utils.logging import read_metrics
@@ -663,7 +684,7 @@ def bench_phase(n: int) -> dict:
     before and read just after; each kernel must run twice an epoch in
     both variants, the first epoch included, and every view must remove
     int(0.2 n) nodes. Prints both results; returns the launches of each
-    variant."""
+    variant and the single-device `eliminate`'s edges/s."""
     thr = RT.run(n=n, device="cuda", reps=5)
     require(thr["removed"] == min(n // 2, n - 1) and thr["device"] ==
             torch.cuda.get_device_name(0), f"rlap_throughput: {thr}")
@@ -684,7 +705,7 @@ def bench_phase(n: int) -> dict:
             and ep["views_checked"] == 4 * (2 * BENCH_EPOCHS + 1),
             f"epoch bench views: {ep}")
     print(json.dumps({"epoch_bench": ep}), flush=True)
-    return by_variant
+    return by_variant, thr["value"]
 
 
 CLI_EPOCHS = 3
@@ -929,6 +950,186 @@ def cli_phase() -> tuple:
     return summary, launches
 
 
+SHARDED_STEPS = 3
+# world 1 over NCCL; world 2 on the one card over gloo, which takes CUDA
+# tensors (NCCL refuses two ranks on one card: "Duplicate GPU detected")
+SHARDED_WORLDS = ((1, "nccl"), (2, "gloo"))
+SHARDED_TIMEOUT = 600
+
+
+def all_edges(g, group) -> tuple:
+    """The live edges of every rank's shard, on every rank."""
+    m = g.edge_mask
+    mine = torch.stack([g.senders[m], g.receivers[m],
+                        g.weights[m].double().view(torch.int64)], 1)
+    size = torch.distributed.get_world_size(group)
+    counts = torch.zeros(size, dtype=torch.int64, device=mine.device)
+    torch.distributed.all_gather_into_tensor(
+        counts, torch.tensor([mine.shape[0]], device=mine.device),
+        group=group)
+    top = int(counts.max())
+    pad = torch.zeros((top, 3), dtype=torch.int64, device=mine.device)
+    pad[:mine.shape[0]] = mine
+    out = torch.empty((size * top, 3), dtype=torch.int64, device=mine.device)
+    torch.distributed.all_gather_into_tensor(out, pad, group=group)
+    out = torch.cat([out[i * top:i * top + int(c)]
+                     for i, c in enumerate(counts.tolist())])
+    return out[:, 0], out[:, 1], out[:, 2].view(torch.float64)
+
+
+def check_schur(s, r, w, n: int, t: int, removed: int, label: str) -> dict:
+    """Exactly t nodes removed; the union of the shards, coalesced, is
+    symmetric (each edge's mirror present with the same weight, rtol
+    1e-6) with positive weights; at most n - t nodes keep an edge; no
+    self-loop."""
+    require(removed == t, f"{label}: removed {removed}, not {t}")
+    key, inv = torch.unique(s * (n + 1) + r, return_inverse=True)
+    wsum = torch.zeros(key.shape[0], dtype=torch.float64,
+                       device=w.device).index_add_(0, inv, w.double())
+    su, ru = key // (n + 1), key % (n + 1)
+    mirror = torch.searchsorted(key, ru * (n + 1) + su).clamp_max(
+        key.shape[0] - 1)
+    require(bool((key[mirror] == ru * (n + 1) + su).all()),
+            f"{label}: an edge without its mirror")
+    require(bool(torch.isclose(wsum[mirror], wsum, rtol=1e-6, atol=0).all()),
+            f"{label}: mirror weights differ")
+    require(bool((wsum > 0).all()) and bool((su != ru).all()),
+            f"{label}: a weight <= 0 or a self-loop")
+    kept = int(torch.unique(su).shape[0])
+    require(kept <= n - t, f"{label}: {kept} nodes keep edges, n - t = "
+            f"{n - t}")
+    return {"edges": int(key.shape[0]), "nodes_with_edges": kept}
+
+
+def sharded_checks(rank: int, world: int, n: int, f: int) -> dict:
+    """One rank of the sharded phase's checks, on the card, at BA(n, m=8)
+    with f-wide features, partitioned by sender block over a 1-D mesh:
+
+    * the sharded `spmm` against the local `spmm` on the encoder's inputs
+      (self-loops, GCN-normalised weights from the global degrees), rtol
+      1e-5, atol 1e-5, and both against float64. (With unit weights a
+      hub's sum of thousands of terms carries float32 rounding past 1e-5
+      in either, as `index_add_` adds in no fixed order);
+    * 3 `GraceTrainer(mesh=...)` steps against the local trainer's on the
+      same views (Compose([RLap(0.2), FeatureMasking(0.3)]) x 2, made on
+      rank 0 and sent to every rank), losses within rtol 1e-4, atol 1e-5;
+    * one sharded rLap view at t = 0.2 n and one call at t = n / 2, each
+      started together on every rank and timed to the slowest, and checked
+      by `check_schur` on the union of the shards."""
+    dev = torch.device("cuda")
+    mesh = make_mesh(device=dev)
+    group = mesh.get_group("data")
+    g = barabasi_albert(n, 8, seed=0, device=dev)
+    g = g.replace(x=torch.as_tensor(DR.features(n, f), device=dev))
+    gs = shard_graph(partition_edges_by_sender(g, world), mesh)
+    res = {"rank": rank, "world": world}
+
+    # the encoder's product: loops added, GCN-normalised weights (the
+    # sharded degrees all-reduced); beside it, both against float64
+    gl, wn = gcn_norm(gs, mesh=mesh)
+    gl0, wn0 = gcn_norm(g)
+    got, ref = spmm(gl, g.x, wn, mesh=mesh), spmm(gl0, g.x, wn0)
+    res["spmm_max_abs_err"] = close(f"sharded spmm world {world}", got, ref,
+                                    1e-5, 1e-5)
+    ref64 = spmm(gl0, g.x.double(), wn0.double())
+    res["spmm_vs_float64"] = {"sharded": float((got - ref64).abs().max()),
+                              "local": float((ref - ref64).abs().max())}
+
+    aug = Compose([RLap(FRAC, device=dev), FeatureMasking(0.3)])
+    kw = dict(hidden_dim=128, num_layers=2, seed=0, device=dev)
+    local = GraceTrainer(aug, aug, **kw)
+    sharded = GraceTrainer(aug, aug, mesh=mesh, **kw)
+    key = rng.key(7, device=dev)
+    losses = {"local": [], "sharded": []}
+    for i in range(SHARDED_STEPS):
+        views = [broadcast_graph(aug(g, k) if rank == 0 else None, mesh, dev)
+                 for k in rng.split(rng.fold_in(key, i))]
+        losses["local"].append(local.train_step(*views))
+        losses["sharded"].append(sharded.train_step(
+            *(shard_graph(v, mesh) for v in views)))
+    close(f"sharded GRACE losses world {world}",
+          torch.tensor(losses["sharded"]), torch.tensor(losses["local"]),
+          1e-4, 1e-5)
+    res["grace_losses"] = losses
+
+    for label, t in (("view", int(FRAC * n)), ("half", n // 2)):
+        torch.distributed.barrier(group)
+        t0 = sync_s()
+        out, removed, overflow = eliminate_sharded(
+            gs, rng.key(11, device=dev), t, mesh)
+        ms = 1e3 * (sync_s() - t0)
+        require(not overflow, f"{label}: overflow")
+        res[f"rlap_{label}_ms"] = ms
+        res[f"rlap_{label}_t"] = t
+        res[f"rlap_{label}"] = check_schur(*all_edges(out, group), n, t,
+                                           removed, f"rLap {label} world "
+                                           f"{world}")
+    res["directed_edges"] = int(g.num_edges)
+    return res
+
+
+def sharded_rank(rank: int, world: int, n: int, f: int) -> dict:
+    """One rank of the sharded phase: the dry run's rank
+    (`dryrun.rank_main`, what `dryrun_multichip` runs in each rank it
+    spawns), then `sharded_checks`, in one process each."""
+    return {"dryrun": DR.rank_main(rank, world, n, f, SHARDED_STEPS, "cuda"),
+            "checks": sharded_checks(rank, world, n, f)}
+
+
+def sharded_phase(n: int, f: int, single_eps: float) -> tuple:
+    """The sharded layer on the card, at each of `SHARDED_WORLDS`, in
+    spawned ranks (`launch`): the dry run (the distributed rLap at
+    n=4096, then 3 GRACE steps through `eliminate_sharded` views at
+    BA(n, m=8), f), whose ranks report their InfoNCE launches, set to 0
+    just before the steps and read just after (each kernel twice a step
+    on every rank), and whose losses and parameters must be equal on every
+    rank (`dryrun.summarise`); then the checks of `sharded_checks`. Prints
+    each rank's step, views and rLap ms a view, and edges/s of the t = n/2
+    call beside the single-device `eliminate`'s (`single_eps`, from the
+    bench phase). Returns (the phase's summary, InfoNCE launches by
+    world)."""
+    summary, launches = {}, {}
+    for world, backend in SHARDED_WORLDS:
+        label = f"world{world}_{backend}"
+        t = time.perf_counter()
+        ranks = launch(sharded_rank, world, args=(n, f), backend=backend,
+                       timeout=SHARDED_TIMEOUT)
+        wall_s = time.perf_counter() - t
+        dry = DR.summarise([r["dryrun"] for r in ranks], backend)
+        checks = [r["checks"] for r in ranks]
+        counts = {name: 0 for name in K.KERNELS}
+        for rk in dry["ranks"]:
+            for name in K.KERNELS:
+                require(rk["infonce_launches"][name] == 2 * SHARDED_STEPS,
+                        f"{label} rank {rk['rank']}: {name} launched "
+                        f"{rk['infonce_launches'][name]} times in "
+                        f"{SHARDED_STEPS} steps")
+                counts[name] += rk["infonce_launches"][name]
+            print(f"sharded dryrun {label} rank {rk['rank']}: step ms "
+                  f"{rk['step_ms']}, views ms {rk['views_ms']}, rLap ms a "
+                  f"view {rk['rlap_ms_per_view']}, rLap at n="
+                  f"{rk['rlap_n']} {rk['rlap_ms']} ms, losses "
+                  f"{rk['losses']}", flush=True)
+        launches[label] = counts
+        edges = checks[0]["directed_edges"]
+        half_ms = max(c["rlap_half_ms"] for c in checks)
+        eps = edges / (half_ms / 1e3)
+        for c in checks:
+            print(f"sharded checks {label} rank {c['rank']}: spmm max abs "
+                  f"err {c['spmm_max_abs_err']} (against float64 "
+                  f"{json.dumps(c['spmm_vs_float64'])}), GRACE losses "
+                  f"{json.dumps(c['grace_losses'])}, rLap view (t="
+                  f"{c['rlap_view_t']}) {c['rlap_view_ms']} ms, t=n/2 "
+                  f"{c['rlap_half_ms']} ms", flush=True)
+        print(f"eliminate_sharded {label}: {eps} edges/s at t=n/2; the "
+              f"single-device eliminate {single_eps} edges/s", flush=True)
+        summary[label] = {
+            "world": world, "backend": backend, "dryrun": dry,
+            "checks": checks, "edges_per_s": eps,
+            "single_device_edges_per_s": single_eps, "wall_s": wall_s}
+    return summary, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -985,13 +1186,18 @@ def main(argv=None) -> int:
     del g
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    bench_launches = bench_phase(args.n)
+    bench_launches, single_eps = bench_phase(args.n)
     print(f"bench phase: {time.perf_counter() - t:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t = time.perf_counter()
     cli, cli_launches = cli_phase()
     cli["phase_s"] = time.perf_counter() - t
     print(json.dumps({"cli": cli}), flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sharded, sharded_launches = sharded_phase(args.n, f, single_eps)
+    sharded["phase_s"] = time.perf_counter() - t
+    print(json.dumps({"sharded": sharded}), flush=True)
 
     kernels = [{"name": name, "route": "cuda",
                 "source": "rlap_tpu_torch/csrc/infonce.cu",
@@ -1000,7 +1206,9 @@ def main(argv=None) -> int:
                     "grace_main_path": launches[name],
                     "epoch_bench_separate": bench_launches["separate"][name],
                     "epoch_bench_paired": bench_launches["paired"][name],
-                    "cli_grace_pubmed": cli_launches[name]},
+                    "cli_grace_pubmed": cli_launches[name],
+                    **{f"sharded_dryrun_{label}": counts[name]
+                       for label, counts in sharded_launches.items()}},
                 "n": args.n, "f": f, **rows[name]}
                for name in K.KERNELS]
     for name in A.KERNELS:

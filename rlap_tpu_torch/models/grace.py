@@ -5,6 +5,11 @@ A shared GCN encoder and projection head over two augmented views,
 dual-branch InfoNCE, Adam with L2 decay, early stopping on the train loss,
 then a linear probe on the clean graph's embeddings. On the card the loss
 goes through the fused InfoNCE kernels.
+
+With a `mesh` (`rlap_tpu_torch.parallel`), every rank of the mesh runs
+the trainer: the encoder aggregates over the edge shards of the mesh's
+"data" axis, and the parameters, the embeddings and the loss are
+replicated.
 """
 
 from __future__ import annotations
@@ -22,15 +27,17 @@ from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
                                           torch_adam)
 from rlap_tpu_torch.nn.gcn import GCNEncoder, ProjectionHead
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
+from rlap_tpu_torch.parallel.mesh import (average_gradients, shard_graph,
+                                          shard_views)
 
 
 class GRACE(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int = 128,
                  num_layers: int = 2, proj_dim: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.encoder = GCNEncoder(in_dim, hidden_dim, num_layers,
-                                  generator=generator)
+                                  generator=generator, mesh=mesh)
         self.project = ProjectionHead(hidden_dim, proj_dim, hidden_dim,
                                       generator=generator)
 
@@ -50,16 +57,26 @@ class GraceTrainer:
     views in one call (e.g. `PairedRLap`); it overrides aug1/aug2.
     `loss="auto"` takes the fused kernels for CUDA tensors and
     `infonce_batched` for CPU tensors.
+
+    `mesh`: a `DeviceMesh` with a "data" axis, every rank of it running
+    this trainer with the same arguments. `train_epoch`, `fit`, `embed`
+    and `evaluate` take the whole graph on every rank; `views` makes the
+    views on the mesh's first rank, sends them to the others (a view made
+    on the card by each rank apart could differ in its last bits, and
+    then in a sampled edge) and returns this rank's edge slice of each;
+    `train_step` takes such slices (or any other edge shards, such as
+    `eliminate_sharded`'s) and averages the gradients over the mesh.
     """
 
     def __init__(self, aug1=None, aug2=None, hidden_dim: int = 128,
                  num_layers: int = 2, lr: float = 1e-3,
                  weight_decay: float = 1e-5, tau: float = 0.2,
                  block_size: int = 1024, seed: int = 0, loss: str = "auto",
-                 pair_augmentor=None, device=None):
+                 pair_augmentor=None, device=None, mesh=None):
         if pair_augmentor is None and (aug1 is None or aug2 is None):
             raise ValueError("pass aug1+aug2 or pair_augmentor")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.aug1, self.aug2 = aug1, aug2
         self.pair_augmentor = pair_augmentor
         self.hidden_dim = hidden_dim
@@ -79,26 +96,33 @@ class GraceTrainer:
         if self.model is not None:
             return
         self.model = GRACE(g.x.shape[1], self.hidden_dim, self.num_layers,
-                           self.hidden_dim,
-                           generator=init_generator(self)).to(self.device)
+                           self.hidden_dim, generator=init_generator(self),
+                           mesh=self.mesh).to(self.device)
         self.optimizer = torch_adam(self.model.parameters(), self.lr,
                                     self.weight_decay)
 
     def views(self, g: Graph):
         if self.pair_augmentor is not None:
             self.key, k = rng.split(self.key)
-            return self.pair_augmentor(g, k)
-        self.key, k1, k2 = rng.split(self.key, 3)
-        return self.aug1(g, k1), self.aug2(g, k2)
+            make = lambda: self.pair_augmentor(g, k)
+        else:
+            self.key, k1, k2 = rng.split(self.key, 3)
+            make = lambda: (self.aug1(g, k1), self.aug2(g, k2))
+        if self.mesh is None:
+            return make()
+        return shard_views(make, self.mesh, self.device)
 
     def train_step(self, g1: Graph, g2: Graph) -> float:
-        """One Adam step on the given views. Returns the loss."""
+        """One Adam step on the given views (with a mesh, this rank's
+        shards of them). Returns the loss."""
         self.ensure_init(g1)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         h1, h2 = self.model(g1, g2)
         loss = self.contrast(h1, h2, node_mask=g1.node_mask)
         loss.backward()
+        if self.mesh is not None:
+            average_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step()
         return float(loss.detach())
 
@@ -118,7 +142,10 @@ class GraceTrainer:
 
     @torch.no_grad()
     def embed(self, g: Graph) -> torch.Tensor:
-        return self.model.embed(g.to(self.device))
+        g = g.to(self.device)
+        if self.mesh is not None:
+            g = shard_graph(g, self.mesh)
+        return self.model.embed(g)
 
     def evaluate(self, g: Graph, labels, train_ratio: float = 0.1,
                  test_ratio: float = 0.8, seed: int = 0) -> dict:

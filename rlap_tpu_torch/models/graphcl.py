@@ -6,6 +6,11 @@ each batch is one block-diagonal union of graphs, augmented as a whole;
 InfoNCE between the two views' projected graph embeddings at tau = 0.2.
 Evaluation embeds the clean graphs with the running batch statistics.
 Graphs without features get x = ones of width 1.
+
+With a `mesh` (`rlap_tpu_torch.parallel`), every rank of the mesh runs
+the trainer: each batch's edges are sharded over the mesh's "data" axis
+and the GIN aggregation sums over the shards; the parameters, the batch
+statistics and the loss are replicated.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
 from rlap_tpu_torch.nn.gin import GINEncoder
 from rlap_tpu_torch.nn.layers import MLP
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
+from rlap_tpu_torch.parallel.mesh import (average_gradients, shard_graph,
+                                          shard_views)
 
 FEATURELESS_DIM = 1
 
@@ -32,10 +39,10 @@ FEATURELESS_DIM = 1
 class GraphCL(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int = 32,
                  num_layers: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.encoder = GINEncoder(in_dim, hidden_dim, num_layers,
-                                  generator=generator)
+                                  generator=generator, mesh=mesh)
         d = hidden_dim * num_layers
         self.project = MLP(d, [d, d], generator=generator)
 
@@ -63,8 +70,15 @@ def copy_into(dst: Dict[str, torch.Tensor],
 
 
 class GraphCLTrainer:
-    """GraphCL training on `device` (the card by default). The sharded
-    `mesh` form of the JAX package is not ported: passing a mesh raises."""
+    """GraphCL training on `device` (the card by default).
+
+    `mesh`: a `DeviceMesh` with a "data" axis, every rank of it running
+    this trainer with the same arguments and graphs. Each batch's two
+    views are made on the mesh's first rank and sent to the others, and
+    each rank trains on its slice of their edges (`GraceTrainer`'s
+    `mesh` says why); the gradients are averaged over the mesh. The clean
+    batches of `embed_graphs` are sliced the same way.
+    """
 
     _ckpt_extra = ("batch_stats",)
 
@@ -73,10 +87,8 @@ class GraphCLTrainer:
                  weight_decay: float = 0.0, tau: float = 0.2,
                  batch_size: int = 128, seed: int = 0, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded GraphCL (mesh=) is not ported")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.aug1, self.aug2 = aug1, aug2
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.lr, self.weight_decay = lr, weight_decay
@@ -107,19 +119,23 @@ class GraphCLTrainer:
         x = graphs[0].x
         in_dim = FEATURELESS_DIM if x is None else x.shape[1]
         self.model = GraphCL(in_dim, self.hidden_dim, self.num_layers,
-                             generator=init_generator(self)).to(self.device)
+                             generator=init_generator(self),
+                             mesh=self.mesh).to(self.device)
         self.optimizer = torch_adam(self.model.parameters(), self.lr,
                                     self.weight_decay)
 
     def train_step(self, g1: Graph, g2: Graph, seg: torch.Tensor,
                    num_graphs: int) -> float:
-        """One Adam step on a batch's two views; the batch statistics are
-        updated by the first view's pass, then by the second's."""
+        """One Adam step on a batch's two views (with a mesh, this rank's
+        shards of them); the batch statistics are updated by the first
+        view's pass, then by the second's."""
         self.optimizer.zero_grad(set_to_none=True)
         _, _, h1 = self.model(g1, seg, num_graphs, train=True)
         _, _, h2 = self.model(g2, seg, num_graphs, train=True)
         loss = self.contrast(g1=h1, g2=h2)
         loss.backward()
+        if self.mesh is not None:
+            average_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step()
         return float(loss.detach())
 
@@ -130,8 +146,11 @@ class GraphCLTrainer:
         total = 0.0
         for batch, seg, ng in self.make_batches(graphs, shuffle_seed=epoch):
             self.key, k1, k2 = rng.split(self.key, 3)
-            total += self.train_step(self.aug1(batch, k1),
-                                     self.aug2(batch, k2), seg, ng)
+            make = lambda: (self.aug1(batch, k1),
+                            self.aug2(batch, k2))
+            g1, g2 = make() if self.mesh is None else shard_views(
+                make, self.mesh, self.device)
+            total += self.train_step(g1, g2, seg, ng)
         return total
 
     def fit(self, graphs: Sequence[Graph], max_epochs: int = 100,
@@ -150,6 +169,8 @@ class GraphCLTrainer:
         outs = []
         for chunk, batch, seg in clean_batches(graphs, self.batch_size,
                                                self.device):
+            if self.mesh is not None:
+                batch = shard_graph(batch, self.mesh)
             _, gemb, _ = self.model(batch, seg, len(chunk), train=False)
             outs.append(gemb[:len(chunk)].cpu().numpy())
         return np.concatenate(outs, axis=0)

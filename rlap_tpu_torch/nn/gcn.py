@@ -21,31 +21,39 @@ from rlap_tpu_torch.ops.spmm import gcn_norm, spmm
 class GCNConv(nn.Module):
     """x @ W (glorot-uniform, no bias), symmetric normalisation (with
     self-loops unless `add_self_loops` is False), SpMM aggregation, then a
-    zero-initialised bias."""
+    zero-initialised bias.
+
+    `mesh`: the graph is this rank's shard (`rlap_tpu_torch.parallel`),
+    normalised by the global degrees and aggregated over the ranks of the
+    mesh's "data" axis; features and output are replicated."""
 
     def __init__(self, in_dim: int, out_dim: int,
                  generator: Optional[torch.Generator] = None,
-                 add_self_loops: bool = True):
+                 add_self_loops: bool = True, mesh=None):
         super().__init__()
         self.lin = nn.Linear(in_dim, out_dim, bias=False)
         nn.init.xavier_uniform_(self.lin.weight, generator=generator)
         self.bias = nn.Parameter(torch.zeros(out_dim))
         self.add_self_loops = add_self_loops
+        self.mesh = mesh
 
     def forward(self, g: Graph, x: torch.Tensor) -> torch.Tensor:
-        gl, wn = gcn_norm(g, add_self_loops=self.add_self_loops)
-        return spmm(gl, self.lin(x), edge_weights=wn) + self.bias
+        gl, wn = gcn_norm(g, add_self_loops=self.add_self_loops,
+                          mesh=self.mesh)
+        return spmm(gl, self.lin(x), edge_weights=wn,
+                    mesh=self.mesh) + self.bias
 
 
 class GCNEncoder(nn.Module):
-    """num_layers x (GCNConv -> PReLU), one slope per layer."""
+    """num_layers x (GCNConv -> PReLU), one slope per layer; `mesh` as
+    `GCNConv`'s."""
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * num_layers
         self.convs = nn.ModuleList(
-            GCNConv(dims[i], dims[i + 1], generator=generator)
+            GCNConv(dims[i], dims[i + 1], generator=generator, mesh=mesh)
             for i in range(num_layers))
         self.acts = nn.ModuleList(PReLU() for _ in range(num_layers))
 

@@ -19,26 +19,32 @@ from rlap_tpu_torch.ops.spmm import spmm
 
 
 class GINConv(nn.Module):
+    """`mesh`: the graph is this rank's shard (`rlap_tpu_torch.parallel`)
+    and the neighbour sum runs over the ranks of the mesh's "data" axis;
+    features and output are replicated."""
+
     def __init__(self, in_dim: int, hidden_dim: int, eps: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.eps = eps
+        self.mesh = mesh
         self.mlp = MLP(in_dim, [hidden_dim, hidden_dim], generator=generator)
 
     def forward(self, g: Graph, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp((1.0 + self.eps) * x + spmm(g, x))
+        return self.mlp((1.0 + self.eps) * x + spmm(g, x, mesh=self.mesh))
 
 
 class GINEncoder(nn.Module):
     """Returns (node embedding, graph embedding), each the concatenation
-    over layers; padding nodes are zeroed in the node embedding."""
+    over layers; padding nodes are zeroed in the node embedding. `mesh` as
+    `GINConv`'s; the batch norms see replicated features."""
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * num_layers
         self.convs = nn.ModuleList(
-            GINConv(dims[i], hidden_dim, generator=generator)
+            GINConv(dims[i], hidden_dim, generator=generator, mesh=mesh)
             for i in range(num_layers))
         self.bns = nn.ModuleList(MaskedBatchNorm(hidden_dim)
                                  for _ in range(num_layers))

@@ -450,8 +450,6 @@ def test_graphcl_featureless_graphs(graph_data):
                         batch_size=8, **CPU)
     assert np.isfinite(tr.fit(bare, max_epochs=2)).all()
     assert tr.embed_graphs(bare).shape == (20, 16)
-    with pytest.raises(NotImplementedError):
-        GraphCLTrainer(Identity(), Identity(), mesh=object(), **CPU)
 
 
 # ---------------------------------------------------------------------------
