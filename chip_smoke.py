@@ -7,12 +7,14 @@
    TF32 is switched off for matmuls and cuDNN, so every float32 product
    (the plain versions included) runs in full float32.
 2. Builds both kernel libraries with nvcc, side by side: the InfoNCE
-   kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the eight access probes
-   (`rlap_tpu_torch/csrc/access.cu`), and prints ptxas's resource lines
-   (registers, spills, static shared memory) and remarks, the dynamic
-   shared memory of the tensor-core kernels, and how many `wgmma`
-   (HGMMA) and full waits behind them (WARPGROUP.DEPBAR) the machine code
-   of each `wgmma` kernel holds.
+   kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the access probes
+   (`rlap_tpu_torch/csrc/access.cu`: the eight, and the previous designs
+   of C3 and C4), and prints ptxas's resource lines (registers, spills,
+   static shared memory) and remarks, one line each for the redesigned
+   C3 and C4 kernels, the dynamic shared memory of the tensor-core
+   kernels and of C3's cluster, and how many `wgmma` (HGMMA) and full
+   waits behind them (WARPGROUP.DEPBAR) the machine code of each `wgmma`
+   kernel holds.
 3. Holds each InfoNCE kernel against its plain PyTorch version: n=2048
    f=128 and ragged n=1000 f=100, masked and unmasked, tau 0.2 and 0.5;
    the ragged shapes n=70 f=300, n=129 f=100, n=4097 f=72, n=500 f=50
@@ -28,16 +30,22 @@
    coefficients reaches it through its column sums), with the error of the
    plain float32 versions and of the plain emulation of the kernels' 3xTF32
    arithmetic beside.
-4. Probe phase. Holds the eight access kernels bit-equal against their
-   plain versions at a ragged shape (n=1000, E=12345, M=97 index tiles),
-   one launch counted per call; times `take` and `scatter_min` on the
+4. Probe phase. Holds the eight access kernels and the previous designs
+   of C3 and C4 (`take_scalar_l2`, `scatter_min_atomic`) bit-equal
+   against their plain versions at a ragged shape (n=1000, E=12345, M=97
+   index tiles; C3's cluster is 1 block), one launch counted per call;
+   holds `take`, both scatter-mins and both scalar walks bit-equal on the
    index stream of the rLap selection on BA(n, m=8) (both endpoints of
-   the canonical edge pool) beside torch's `index_select` and
-   `scatter_reduce_`, and the selection itself as the port runs it in a
-   view's first round; then drives the probe entry point
-   `rlap_tpu_torch.bench.probe_access.run` at n=100000, E=1600000 with
-   the access counts set to 0 just before and read just after. The entry
-   point holds each kernel bit-equal at that shape before it times it.
+   the canonical edge pool; C3 on its first 8192 gather indices, a
+   cluster of 2) and times them beside torch's `index_select` and
+   `scatter_reduce_`, with the atomics C4's merge leaves, and the
+   selection itself as the port runs it in a view's first round; then
+   drives the probe entry point `rlap_tpu_torch.bench.probe_access.run`
+   at n=100000, E=1600000 with the access counts set to 0 just before
+   and read just after. The entry point holds each kernel bit-equal at
+   that shape before it times it, and reads C3's staging and walk cycles
+   and its local and remote reads on random, block-0-only and
+   other-block-only indices.
 5. Checks that `approximate_cholesky(barabasi_albert(2000, 8), rng.key(0),
    400)` runs with no `device=` anywhere.
 6. Drives the training path: GraceTrainer(Compose([RLap(0.2),
@@ -97,7 +105,8 @@
    t = n/2 call beside the single-device `eliminate`'s.
 10. Prints one JSON line of the probe, one of the main path, one of each
    bench, one of the CLI phase, one of the sharded phase, one of all
-   eleven kernels, the nvidia-smi line, and last
+   eleven kernels and the two previous designs (each row with the card's
+   name and power limit), the nvidia-smi line, and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
    exits non-zero.
 """
@@ -186,6 +195,8 @@ REPLACES = {
     "take_two_level": "tools/probe_access.py:180",
     "take_scalar": "tools/probe_access.py:215",
     "scatter_min": "tools/probe_access.py:251",
+    "take_scalar_l2": "tools/probe_access.py:215",
+    "scatter_min_atomic": "tools/probe_access.py:251",
     "take2d": "tools/probe_access2.py:53",
     "take_axis0": "tools/probe_access2.py:102",
     "take_axis1": "tools/probe_access2.py:143",
@@ -402,14 +413,30 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
     return rows
 
 
+def ptxas_usage(log: str, names) -> dict:
+    """Registers, shared memory and spills of each kernel in `names`, from
+    the `-Xptxas -v` output of a build."""
+    usage, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            current = next((k for k in names if k in line), None)
+        elif current is not None and ("Used" in line or "spill" in line):
+            usage.setdefault(current, []).append(
+                line.split(":", 1)[-1].strip())
+    require(set(usage) == set(names), f"ptxas printed no resource line for "
+            f"{set(names) - set(usage)}")
+    return {k: "; ".join(dict.fromkeys(v)) for k, v in usage.items()}
+
+
 def probe_phase(g) -> tuple:
     """The access kernels: ragged check, the rLap selection's index stream,
     then the probe entry point with its launches counted. Returns (the
     entry point's result, launches per kernel in its run)."""
     errs = P.check(P.make_inputs(RAGGED_N, RAGGED_E, RAGGED_M, 1, "cuda", 1))
-    print(f"access kernels bit-equal to their plain versions at n={RAGGED_N} "
-          f"E={RAGGED_E} M={RAGGED_M}: max abs err {json.dumps(errs)}",
-          flush=True)
+    print(f"access kernels and previous variants bit-equal to their plain "
+          f"versions at n={RAGGED_N} E={RAGGED_E} M={RAGGED_M} (C3: a "
+          f"cluster of {A.scalar_plan(RAGGED_N, P.TILE).blocks}): max abs "
+          f"err {json.dumps(errs)}", flush=True)
 
     # _select gathers pack[dst] and scatter-mins it into nmin[src], over
     # both directions of every pool edge
@@ -434,17 +461,29 @@ def probe_phase(g) -> tuple:
         (pending[s] & pending[r]).sum())
     stream["select_round1_selected"] = int(
         _select(s, r, pending, prio64).sum())
-    print(f"rlap_select_stream BA(n={n}, m=8): "
-          f"{json.dumps(stream)}", flush=True)
+    stream["take_scalar_cluster"] = A.scalar_plan(n, P.TILE).blocks
+    print(f"rlap_select_stream BA(n={n}, m=8), take, both scatter-mins and "
+          f"both scalar walks bit-equal: {json.dumps(stream)}", flush=True)
 
     A.reset_launch_counts()
     res = P.run(PROBE_N, PROBE_E, PROBE_REPS,
                 emit=lambda line: print(line, flush=True))
     launches = dict(A.launch_counts)
-    for name in A.KERNELS:
-        row = res["kernels"][name]
+    cyc = res["take_scalar_cycles"]
+    parts = []
+    for case in ("random", "local", "remote"):
+        c = cyc[case]
+        parts.append(f"{case} stage {c['stage_cycles']} walk "
+                     f"{c['walk_cycles']} ({c['cycles_per_element']:.2f} an "
+                     f"element, {c['walk_ms']:.5f} ms), local "
+                     f"{c['local_reads']} remote {c['remote_reads']}")
+    print(f"take_scalar cycles at n={PROBE_N}, a cluster of "
+          f"{cyc['plan']['blocks']} ({json.dumps(cyc['plan'])}), "
+          f"{cyc['sm_clock_khz']} kHz: " + "; ".join(parts), flush=True)
+    for name in A.NAMES:
+        row = {**res["kernels"], **res["previous"]}[name]
         # the entry point's own comparison with the plain version is one
-        # more launch than the timed ones it reports
+        # more launch than the timed and cycle-counting ones it reports
         require(row["launches"] > 0 and launches[name] == row["launches"] + 1,
                 f"{name}: {launches[name]} launches counted, the probe "
                 f"reports {row['launches']}")
@@ -1162,6 +1201,14 @@ def main(argv=None) -> int:
             if ("Used" in line or "Compiling entry" in line
                     or "spill" in line or "C75" in line):
                 print(f"  ptxas: {line.strip()}")
+    for kname, usage in ptxas_usage(built[1][1], (
+            "take_scalar_cluster_kernel", "fill_trigger_kernel",
+            "scatter_min_merged_kernel")).items():
+        print(f"  ptxas, redesigned C3 / C4: {kname}: {usage}", flush=True)
+    plan = A.scalar_plan(PROBE_N, P.TILE)
+    print(f"  dynamic shared memory of take_scalar_cluster_kernel at "
+          f"n={PROBE_N}: {plan.smem} bytes a block, a cluster of "
+          f"{plan.blocks}", flush=True)
     print("  dynamic shared memory a block at f <= 128: infonce_fwd (wgmma) "
           "197632 bytes (4 stages and 2 lo planes of 64 x 128 floats), "
           "infonce_bwd_da and infonce_bwd_db (wgmma) 230400 bytes each (64 "
@@ -1209,10 +1256,10 @@ def main(argv=None) -> int:
                     "cli_grace_pubmed": cli_launches[name],
                     **{f"sharded_dryrun_{label}": counts[name]
                        for label, counts in sharded_launches.items()}},
-                "n": args.n, "f": f, **rows[name]}
+                "n": args.n, "f": f, "card": smi, **rows[name]}
                for name in K.KERNELS]
-    for name in A.KERNELS:
-        row = probe["kernels"][name]
+    for name in A.NAMES:
+        row = {**probe["kernels"], **probe["previous"]}[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "rlap_tpu_torch/csrc/access.cu",
@@ -1220,7 +1267,12 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["yardstick_ms"],
+            "previous_design": name in A.PREVIOUS, "card": smi,
             "shape": {"table": probe["n"], "indices": row["elements"]}})
+        if name == "take_scalar":
+            # the one-thread walk's own floor, from its cycles in this run
+            kernels[-1]["walk_floor_ms"] = \
+                probe["take_scalar_cycles"]["random"]["walk_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

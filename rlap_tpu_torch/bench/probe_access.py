@@ -14,10 +14,16 @@ size n and index count E of a graph (defaults: BA(100k, m=8)):
      and on sorted indices;
   D. `torch.sort` of E keys with two payloads;
   C1-C4, V1-V4. the eight hand-written kernels of
-     `rlap_tpu_torch/ops/access.py`, each held bit-equal against its plain
-     version first, then timed beside that plain version and a yardstick:
-     A1 for the lookups, B2 for `scatter_min`, `take_along_dim` on
-     ready-made int64 indices for V2-V4.
+     `rlap_tpu_torch/ops/access.py`, and the previous designs of C3 and C4
+     (`take_scalar_l2`, `scatter_min_atomic`), each held bit-equal against
+     its plain version first, then timed beside that plain version and a
+     yardstick: A1 for the lookups, `index_select` of the same 8192
+     indices for C3, B2 for the scatter-mins, `take_along_dim` on
+     ready-made int64 indices for V2-V4;
+  C3 cycles. the staging and walk spans of `take_scalar` in SM cycles, on
+     random indices and, where the table spans more than one block, on
+     indices that all fall in block 0's slice (local reads) and all in the
+     other blocks' (remote reads).
 
 Nothing is caught: a kernel that fails to build, launch or match raises.
 On the card the times are CUDA-event times over `reps` launches, each on
@@ -28,8 +34,10 @@ plain versions and the times are host-clock times of those (`"timer":
 
 The bound of each kernel is its bytes (each input read once, each output
 written once) over the H100's 3.35 TB/s; none does arithmetic worth
-counting. `take_scalar` is a latency probe: its bytes bound is printed and
-means nothing.
+counting. `take_scalar` is a latency probe: one thread walks its 8192
+indices one after another, as the TPU probe's scalar loop does, so its
+bytes bound is printed but is not what holds it back; the cycles of its
+walk are (a parallel gather would be C1 again).
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from rlap_tpu_torch import resolve_device
 from rlap_tpu_torch.ops import access as A
 
 HBM_BYTES = 3.35e12  # H100 SXM, NVIDIA's data sheet
-TILE = 8192  # elements of the scalar probe, as in the tool
+TILE = A.TILE  # elements of the scalar probe, as in the tool
 _BLOCKER = 4096  # side of the matrix product that holds the queue back
 
 
@@ -108,26 +116,29 @@ def _calls(inp: dict) -> Dict[str, tuple]:
     one_d = [(inp["table"], i) for i in inp["idx"]]
     two_level = [(inp["tab2d"], i) for i in inp["idx"]]
     tiles = [(inp["tab2d"], i) for i in inp["idx2"]]
+    scalar = [(inp["table"], i[:tile]) for i in inp["idx"]]
+    scatter = [(i, v, nt) for i, v in zip(inp["idx"], inp["val"])]
     return {
         "take": (A.take, A.take_plain, one_d),
         "take_two_level": (A.take_two_level, A.take_two_level_plain,
                            two_level),
-        "take_scalar": (A.take_scalar, A.take_plain,
-                        [(inp["table"], i[:tile]) for i in inp["idx"]]),
-        "scatter_min": (A.scatter_min, A.scatter_min_plain,
-                        [(i, v, nt) for i, v in zip(inp["idx"], inp["val"])]),
+        "take_scalar": (A.take_scalar, A.take_plain, scalar),
+        "scatter_min": (A.scatter_min, A.scatter_min_plain, scatter),
         "take2d": (A.take2d, A.take_two_level_plain, tiles),
         "take_axis0": (A.take_axis0, A.take_axis0_plain, tiles),
         "take_axis1": (A.take_axis1, A.take_axis1_plain, tiles),
         "take_axis0_axis1": (A.take_axis0_axis1, A.take_axis0_axis1_plain,
                              tiles),
+        "take_scalar_l2": (A.take_scalar_l2, A.take_plain, scalar),
+        "scatter_min_atomic": (A.scatter_min_atomic, A.scatter_min_plain,
+                               scatter),
     }
 
 
 def check(inp: dict) -> Dict[str, int]:
-    """Hold each of the eight kernels against its plain version on the
-    first draw of `inp`: bit-equal, and one launch counted per call on the
-    card (none on the CPU). Returns the max abs error per kernel: 0."""
+    """Hold each kernel and previous variant against its plain version on
+    the first draw of `inp`: bit-equal, and one launch counted per call on
+    the card (none on the CPU). Returns the max abs error per kernel: 0."""
     errs = {}
     on_card = inp["table"].device.type == "cuda"
     for name, (kern, plain, args) in _calls(inp).items():
@@ -166,6 +177,8 @@ def bounds_ms(inp: dict) -> Dict[str, float]:
         "take_axis1": 8 * cells + 4 * A.LANES,
         "take_axis0_axis1": 8 * cells + 4 * nt,
     }
+    nbytes["take_scalar_l2"] = nbytes["take_scalar"]
+    nbytes["scatter_min_atomic"] = nbytes["scatter_min"]
     return {k: 1e3 * v / HBM_BYTES for k, v in nbytes.items()}
 
 
@@ -173,36 +186,91 @@ def _index_select(table, idx64) -> torch.Tensor:
     return torch.index_select(table, 0, idx64)
 
 
+def merged_reds(idx: torch.Tensor) -> int:
+    """How many atomics `scatter_min` issues on `idx`: one for each of the
+    head and tail updates; of each whole quad, one for each run of equal
+    neighbours that ends in slots 0-2; and of slot 3, one for each distinct
+    index among a warp's 32 quads where two neighbouring quads end on the
+    same index, else one a quad. The previous design issues one for every
+    update."""
+    e = idx.numel()
+    head, quads = A.vector_split(idx.data_ptr(), e)
+    body = idx[head:head + 4 * quads].view(quads, 4).to(torch.int64)
+    ends = int((body[:, :3] != body[:, 1:]).sum())
+    last, warp = body[:, 3], torch.arange(quads, device=idx.device) // 32
+    repeats = torch.zeros(-(-quads // 32), dtype=torch.bool,
+                          device=idx.device)
+    repeats[warp[1:][(last[1:] == last[:-1]) & (warp[1:] == warp[:-1])]] = True
+    merged = repeats[warp]
+    slot3 = int(torch.unique(warp[merged] * (1 << 31) + last[merged]).numel())
+    return ends + slot3 + int((~merged).sum()) + e - 4 * quads
+
+
 def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
                 scatter_idx: torch.Tensor, val: torch.Tensor,
                 reps: int) -> dict:
-    """`take` by `gather_idx` and `scatter_min` of `val` at `scatter_idx`
-    on given index streams, beside torch's `index_select` and
-    `scatter_reduce_("amin")` on the same streams as int64. Each
-    repetition works on its own copy of the streams, so that the indices
-    come from device memory and not from L2."""
+    """`take` by `gather_idx`, and both designs of `scatter_min` of `val`
+    at `scatter_idx`, on given index streams, beside torch's
+    `index_select` and `scatter_reduce_("amin")` on the same streams as
+    int64; and both designs of `take_scalar` on the first `TILE` indices
+    of `gather_idx`. Each is held bit-equal to its plain version first.
+    Each repetition works on its own copy of the streams, so that the
+    indices come from device memory and not from L2."""
     n = table.shape[0]
     sets = range(reps + 1)
     gathers = [gather_idx.clone() for _ in sets]
     scatters = [scatter_idx.clone() for _ in sets]
     vals = [val.clone() for _ in sets]
-    _require(torch.equal(A.take(table, gather_idx),
-                         A.take_plain(table, gather_idx))
-             and torch.equal(A.scatter_min(scatter_idx, val, n),
-                             A.scatter_min_plain(scatter_idx, val, n)),
-             "take or scatter_min differs from its plain version on the "
-             "given stream")
+    tile = gather_idx[:TILE]
+    ref = A.scatter_min_plain(scatter_idx, val, n)
+    errs = {}
+    for name, (got, want) in (
+            ("take", (A.take(table, gather_idx),
+                      A.take_plain(table, gather_idx))),
+            ("take_scalar", (A.take_scalar(table, tile),
+                             A.take_plain(table, tile))),
+            ("take_scalar_l2", (A.take_scalar_l2(table, tile),
+                                A.take_plain(table, tile))),
+            ("scatter_min", (A.scatter_min(scatter_idx, val, n), ref)),
+            ("scatter_min_atomic",
+             (A.scatter_min_atomic(scatter_idx, val, n), ref))):
+        errs[name] = int((got.long() - want.long()).abs().max())
+        _require(torch.equal(got, want),
+                 f"{name} differs from its plain version on the given "
+                 f"stream, max abs err {errs[name]}")
+    scatter_args = [(i, v, n) for i, v in zip(scatters, vals)]
+    scalar_args = [(table, i[:TILE]) for i in gathers]
     return {
         "n": n, "e": gather_idx.shape[0],
         "take_ms": time_ms(A.take, [(table, i) for i in gathers]),
         "index_select_ms": time_ms(
             _index_select, [(table, i.to(torch.int64)) for i in gathers]),
-        "scatter_min_ms": time_ms(
-            A.scatter_min, [(i, v, n) for i, v in zip(scatters, vals)]),
+        "scatter_min_ms": time_ms(A.scatter_min, scatter_args),
+        "scatter_min_atomic_ms": time_ms(A.scatter_min_atomic, scatter_args),
         "scatter_reduce_ms": time_ms(
             _torch_scatter_min,
             [(i.to(torch.int64), v, n) for i, v in zip(scatters, vals)]),
+        "scatter_min_reds": merged_reds(scatter_idx),
+        "take_scalar_ms": time_ms(A.take_scalar, scalar_args),
+        "take_scalar_l2_ms": time_ms(A.take_scalar_l2, scalar_args),
+        "max_abs_err": errs,
     }
+
+
+def scalar_cycles(table: torch.Tensor, idx: torch.Tensor,
+                  reps: int = 5) -> dict:
+    """`take_scalar`'s staging and walk spans in SM cycles (the median of
+    `reps` launches) and its local and remote reads, on the card."""
+    cyc = torch.zeros(3, dtype=torch.int64, device=table.device)
+    spans = []
+    for _ in range(reps):
+        A.take_scalar(table, idx, cycles=cyc)
+        spans.append(cyc.tolist())
+    stage, walk, remote = (sorted(c)[len(c) // 2] for c in zip(*spans))
+    e = idx.numel()
+    return {"stage_cycles": stage, "walk_cycles": walk,
+            "cycles_per_element": walk / e, "remote_reads": remote,
+            "local_reads": e - remote}
 
 
 def _torch_scatter_min(idx64, val, size: int) -> torch.Tensor:
@@ -257,15 +325,16 @@ def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
     row0 = tab2d[0:1].expand(m, A.LANES)
     a1 = torch_ms["A1 index_select, random idx"]
     tile = min(TILE, inp["e"])
+    scalar = time_ms(_index_select, [(inp["table"], i[:tile].to(torch.int64))
+                                     for i in inp["idx"]])
     return {
         "take": a1, "take_two_level": a1,
-        "take_scalar": time_ms(_index_select,
-                               [(inp["table"], i[:tile].to(torch.int64))
-                                for i in inp["idx"]]),
+        "take_scalar": scalar, "take_scalar_l2": scalar,
         "take2d": time_ms(_index_select,
                           [(inp["tpad"], i.reshape(-1).to(torch.int64))
                            for i in inp["idx2"]]),
         "scatter_min": torch_ms["B2 scatter_reduce_ amin, random idx"],
+        "scatter_min_atomic": torch_ms["B2 scatter_reduce_ amin, random idx"],
         "take_axis0": time_ms(lambda t, r: torch.take_along_dim(t, r, 0),
                               [(tab2d, r) for r in rows]),
         "take_axis1": time_ms(lambda t, ln: torch.take_along_dim(t, ln, 1),
@@ -292,34 +361,70 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     torch_ms = _torch_sections(inp, emit)
 
     errs = check(inp)
-    emit(f"C1-C4, V1-V4 bit-equal to their plain versions at n={n} E={e} "
-         f"M={inp['m']}")
+    emit(f"C1-C4, V1-V4 and the previous C3, C4 bit-equal to their plain "
+         f"versions at n={n} E={e} M={inp['m']}")
     before = dict(A.launch_counts)
     yard = _yardsticks(inp, torch_ms)
     bound = bounds_ms(inp)
-    scalar_reps = min(reps, 3)
-    kernels = {}
+    rows = {}
     for kname, (kern, plain, args) in _calls(inp).items():
-        if kname == "take_scalar":
-            args = args[:scalar_reps + 1]
         ms = time_ms(kern, args)
-        elems = args[0][-1].numel() if kname != "scatter_min" else e
-        kernels[kname] = {
+        elems = e if "scatter" in kname else args[0][-1].numel()
+        rows[kname] = {
             "ms": ms, "plain_ms": time_ms(plain, args),
             "yardstick_ms": yard[kname], "bound_ms": bound[kname],
             "bound_by": "bytes", "elements": elems,
             "elements_per_s": elems / (1e-3 * ms), "max_abs_err": errs[kname],
-            "launches": A.launch_counts[kname] - before[kname],
         }
-        emit(f"{kname:20s} {ms:9.4f} ms  plain {kernels[kname]['plain_ms']:9.4f}"
+        emit(f"{kname:20s} {ms:9.4f} ms  plain {rows[kname]['plain_ms']:9.4f}"
              f"  yardstick {yard[kname]:9.4f}  bound {bound[kname]:.5f} ms")
-    sc = kernels["take_scalar"]
-    sc["ms_scaled_to_e"] = sc["ms"] * e / sc["elements"]
-    emit(f"   take_scalar scaled to E: {sc['ms_scaled_to_e']:.1f} ms")
-    return {"device": name, "timer": "cuda events" if on_card
-            else "host clock", "n": n, "nt": inp["nt"], "e": e,
-            "m": inp["m"], "reps": reps, "torch_ms": torch_ms,
-            "kernels": kernels}
+    for kname in ("take_scalar", "take_scalar_l2"):
+        sc = rows[kname]
+        sc["ms_scaled_to_e"] = sc["ms"] * e / sc["elements"]
+        emit(f"   {kname} scaled to E: {sc['ms_scaled_to_e']:.2f} ms")
+    for kname in ("scatter_min", "scatter_min_atomic"):
+        rows[kname]["reds"] = e if kname == "scatter_min_atomic" \
+            else merged_reds(inp["idx"][0])
+    res = {"device": name, "timer": "cuda events" if on_card
+           else "host clock", "n": n, "nt": inp["nt"], "e": e,
+           "m": inp["m"], "reps": reps, "torch_ms": torch_ms}
+    if on_card:
+        res["take_scalar_cycles"] = _cycles_section(inp, emit)
+    for kname, row in rows.items():
+        row["launches"] = A.launch_counts[kname] - before[kname]
+    res["kernels"] = {k: rows[k] for k in A.KERNELS}
+    res["previous"] = {k: rows[k] for k in A.PREVIOUS}
+    return res
+
+
+def _cycles_section(inp: dict, emit) -> dict:
+    """C3's cycles on random indices and, where the table spans several
+    blocks, on indices that all fall in block 0's slice and all in the
+    others', with the times they mean at the card's rated clock."""
+    n, table = inp["n"], inp["table"]
+    tile = min(TILE, inp["e"])
+    plan = A.scalar_plan(n, tile)
+    khz = A.sm_clock_khz(table.device)
+    gen = torch.Generator(device=table.device).manual_seed(7)
+    cases = {"random": inp["idx"][0][:tile]}
+    if plan.blocks > 1:
+        for case, lo, hi in (("local", 0, plan.head),
+                             ("remote", plan.head, n)):
+            cases[case] = torch.randint(lo, hi, (tile,), generator=gen,
+                                        device=table.device,
+                                        dtype=torch.int32)
+    out = {"plan": plan._asdict(), "sm_clock_khz": khz, "elements": tile}
+    for case, idx in cases.items():
+        c = scalar_cycles(table, idx)
+        c["stage_ms"] = c["stage_cycles"] / khz
+        c["walk_ms"] = c["walk_cycles"] / khz
+        out[case] = c
+        emit(f"   take_scalar cycles, {case} indices: stage "
+             f"{c['stage_cycles']} walk {c['walk_cycles']} "
+             f"({c['cycles_per_element']:.2f} an element), local "
+             f"{c['local_reads']} remote {c['remote_reads']}; cluster of "
+             f"{plan.blocks}, {khz} kHz")
+    return out
 
 
 def main(argv: List[str] = None) -> int:

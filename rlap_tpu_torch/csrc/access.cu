@@ -1,29 +1,37 @@
-// Gather and scatter-min access probes on Hopper: eight int32 kernels.
+// Gather and scatter-min access probes on Hopper: int32 kernels.
 //
 // They replace the eight Pallas TPU kernels of the access-probe tools:
 //   take_kernel             <- C1 k_take   tools/probe_access.py:135  (call :139)
 //   take_two_level_kernel   <- C2 k_tala   tools/probe_access.py:170  (call :180)
-//   take_scalar_kernel      <- C3 k_scalar tools/probe_access.py:208  (call :215)
-//   fill_kernel + scatter_min_kernel
+//   take_scalar_cluster_kernel
+//                           <- C3 k_scalar tools/probe_access.py:208  (call :215)
+//   fill_trigger_kernel + scatter_min_merged_kernel
 //                           <- C4 k_smin   tools/probe_access.py:239  (call :251)
 //   take2d_kernel           <- V1 k_v1     tools/probe_access2.py:85  (call :53)
 //   take_axis0_kernel       <- V2 k_v2     tools/probe_access2.py:97  (call :102)
 //   take_axis1_kernel       <- V3 k_v3     tools/probe_access2.py:136 (call :143)
 //   take_axis0_axis1_kernel <- V4 k_v4     tools/probe_access2.py:175 (call :194)
+// and keep the first designs of C3 and C4 as named previous variants, so
+// that one run can compare them: take_scalar_kernel (one thread against
+// L2) and fill_kernel + scatter_min_kernel (one atomicMin an update).
 //
 // The probed pattern is the vertex-table access of the rLap round: a
 // lookup in an n-entry table by ~2 |edges| indices, and a scatter-min into
 // an n-entry table. At the probes' default shape (n = 100000, 1.6 M
 // indices) a lookup moves 4 bytes of index, 4 of output and a 400 KB
-// table: 13.2 MB, 3.9 us at 3.35 TB/s. All eight are bound by bytes; what
-// they probe is how far the random table access keeps them from that.
+// table: 13.2 MB, 3.9 us at 3.35 TB/s. All are bound by bytes, except the
+// one-thread walk of C3, which is bound by latency; what they probe is how
+// far the random table access keeps them from that.
 //
 // The TPU kernels hold the whole table in VMEM and walk index tiles with
-// a sequential grid. This card has neither: a block has at most 227 KB of
-// shared memory, less than the table, and blocks run in no order. So the
-// table stays in device memory and is served by the 50 MB L2 (take,
-// take2d, take_axis0, scatter_min), or is cut into chunks that fit shared
-// memory (take_two_level), and only the small per-row tables of
+// a sequential grid. On this card a block has at most 227 KB of shared
+// memory, less than the 400 KB table, and blocks run in no order. A
+// thread-block cluster of k blocks on neighbouring SMs shares its shared
+// memory (distributed shared memory, up to 8 x 227 KB in a portable
+// cluster), which holds such a table on-chip: C3 stages it there. The
+// parallel lookups keep the table in device memory, served by the 50 MB
+// L2 (take, take2d, take_axis0), or cut it into chunks that one block's
+// shared memory holds (take_two_level); only the small per-row tables of
 // take_axis1 and take_axis0_axis1 are staged whole. Ragged sizes are
 // masked in the kernels; the TPU calls need E to be a multiple of 8192.
 //
@@ -32,8 +40,11 @@
 // flat entry idx; the 2-D kernels take [M, 128] index tiles as quads of
 // four consecutive indices (one 128-bit load and store per thread).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -93,18 +104,169 @@ take_two_level_kernel(const int* __restrict__ table,
   }
 }
 
-// C3. One thread walks the indices one after another: the latency of a
-// dependent index load and table load per element, with nothing to hide
-// it. It is meant to be slow.
+// C3, previous variant (take_scalar_l2). One thread walks the indices one
+// after another against device memory: the latency of a dependent index
+// load and table load from L2 per element, with nothing to hide it.
 __global__ void take_scalar_kernel(const int* __restrict__ table,
                                    const int* __restrict__ idx,
                                    int* __restrict__ out, int e) {
   for (int i = 0; i < e; ++i) out[i] = table[idx[i]];
 }
 
-// C4. out = full(nt, 2^30), then out[idx[i]] = min(out[idx[i]], val[i]) by
-// atomicMin in L2. Min does not depend on the order, so the result is
-// deterministic.
+// C3. The TPU probe walks a VMEM table with one scalar loop: the floor of
+// addressing one element at a time on-chip. Here the table lives in the
+// shared memory of a cluster of k blocks (k <= 8, from the wrapper's plan):
+// block 0 holds entries [0, head) and the index tile, block r >= 1 holds
+// [head + (r - 1) slice, head + r slice). Layout of each block's dynamic
+// shared memory: the mbarrier (16 bytes), its table slice, then in block 0
+// the index tile. Each block stages its slice with one bulk asynchronous
+// copy (TMA, completion on its mbarrier) and the last < 4 entries, which a
+// bulk copy cannot take (16-byte multiples), with plain loads. After a
+// cluster barrier, thread 0 of block 0 walks the indices alone: it maps
+// each entry's owner with mapa and reads it by ld.shared::cluster, block
+// 0's own entries too. (ptxas makes every such read a generic load
+// through the shared window. Where only the other blocks' entries take
+// that path and block 0's take ld.shared, it fetches the window's base
+// per element, behind a predicate, and the walk was slower on the card.)
+// Iterations are independent, as on the TPU, so the walk issues 32 loads
+// before their 32 stores; with 8 it was slower. Each result goes back
+// over its own index in the tile, which the walk has read, and one bulk
+// copy stores the tile to device memory at the end: block 0 has no room
+// for a second tile. A second cluster barrier keeps every block's shared
+// memory alive until the walk is done. The walk is bound by the latency
+// and issue rate of distributed shared memory reads, not by bytes;
+// `cycles` (optional) receives the staging and walk spans in clock64
+// cycles and the number of reads of another block's slice.
+constexpr int SCALAR_THREADS = 32;
+constexpr int SCALAR_UNROLL = 32;
+constexpr int SCALAR_BARRIER_BYTES = 16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// entry j of the table, from the shared memory of the block that holds it
+__device__ __forceinline__ int cluster_entry(uint32_t tab, unsigned j,
+                                             unsigned head, unsigned slice,
+                                             unsigned long long magic,
+                                             unsigned& remote) {
+  const unsigned x = j - head;  // wraps when j < head; then unused
+  const unsigned q = static_cast<unsigned>((x * magic) >> 40);  // x / slice
+  const bool far = j >= head;
+  remote += far;
+  int v;
+  asm volatile(
+      "{\n"
+      ".reg .b32 a;\n"
+      "mapa.shared::cluster.u32 a, %1, %2;\n"
+      "ld.shared::cluster.u32 %0, [a];\n"
+      "}\n"
+      : "=r"(v)
+      : "r"(tab + 4 * (far ? x - q * slice : j)), "r"(far ? q + 1 : 0u));
+  return v;
+}
+
+__global__ void __launch_bounds__(SCALAR_THREADS)
+take_scalar_cluster_kernel(const int* __restrict__ table,
+                           const int* __restrict__ idx, int* __restrict__ out,
+                           long long* __restrict__ cycles, int n, int e,
+                           int head, int slice, unsigned long long magic) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t0 = clock64();
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int* tab = reinterpret_cast<int*>(smem + SCALAR_BARRIER_BYTES);
+  const int start = rank == 0 ? 0 : head + (int)(rank - 1) * slice;
+  const int most = rank == 0 ? head : slice;
+  const int len = n - start < 0 ? 0 : (n - start > most ? most : n - start);
+  int* ix = tab + ((head + 3) & ~3);  // block 0 only
+  const int len4 = len & ~3, e4 = e & ~3;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(bar)),
+        "r"(4 * (len4 + (rank == 0 ? e4 : 0)))
+        : "memory");
+    if (len4 > 0) bulk_copy(tab, table + start, 4 * len4, bar);
+    if (rank == 0 && e4 > 0) bulk_copy(ix, idx, 4 * e4, bar);
+  }
+  // the ragged ends, fewer than 4 entries each
+  if ((int)threadIdx.x < len - len4)
+    tab[len4 + threadIdx.x] = table[start + len4 + threadIdx.x];
+  if (rank == 0 && (int)threadIdx.x < e - e4)
+    ix[e4 + threadIdx.x] = idx[e4 + threadIdx.x];
+  if (threadIdx.x == 0) mbarrier_wait(bar, 0);
+  cluster.sync();  // every slice staged and visible to the whole cluster
+
+  if (rank == 0 && threadIdx.x == 0) {
+    const long long t1 = clock64();
+    const uint32_t base = smem_u32(tab);
+    unsigned remote = 0;
+    int i = 0;
+    for (; i + SCALAR_UNROLL <= e; i += SCALAR_UNROLL) {
+      int j[SCALAR_UNROLL], v[SCALAR_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SCALAR_UNROLL; u += 4)
+        *reinterpret_cast<int4*>(j + u) =
+            *reinterpret_cast<const int4*>(ix + i + u);
+#pragma unroll
+      for (int u = 0; u < SCALAR_UNROLL; ++u)
+        v[u] = cluster_entry(base, j[u], head, slice, magic, remote);
+#pragma unroll
+      for (int u = 0; u < SCALAR_UNROLL; ++u) ix[i + u] = v[u];
+    }
+    for (; i < e; ++i)
+      ix[i] = cluster_entry(base, ix[i], head, slice, magic, remote);
+    // the results, in the index tile, to device memory
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (e4 > 0)
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+          ::"l"(out), "r"(smem_u32(ix)), "r"(4 * e4)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    for (int t = e4; t < e; ++t) out[t] = ix[t];
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    const long long t2 = clock64();
+    if (cycles != nullptr) {
+      cycles[0] = t1 - t0;
+      cycles[1] = t2 - t1;
+      cycles[2] = remote;
+    }
+  }
+  cluster.sync();  // no block leaves while block 0 may still read it
+}
+
+// C4, previous variant (scatter_min_atomic). out = full(nt, 2^30), then
+// out[idx[i]] = min(out[idx[i]], val[i]) by one atomicMin in L2 an update,
+// in a second launch after the fill. Min does not depend on the order, so
+// the result is deterministic.
 __global__ void __launch_bounds__(THREADS)
 fill_kernel(int* __restrict__ out, int nt, int value) {
   const int stride = gridDim.x * blockDim.x;
@@ -119,6 +281,101 @@ scatter_min_kernel(const int* __restrict__ idx, const int* __restrict__ val,
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < e;
        i += stride)
     atomicMin(out + idx[i], val[i]);
+}
+
+// C4. The same function with fewer and earlier atomics. On the rLap
+// endpoint stream, which is sorted by sender, a hub is a long run of one
+// index: one atomicMin a lane sends the whole warp to one L2 address, one
+// after another. Here each thread takes 4 consecutive updates (one 16-byte
+// load of indices, one of values) and merges equal neighbours in
+// registers, so that the last of a run carries its minimum. A run longer
+// than a quad ends in slot 3 of every lane it covers, so slot 3 is merged
+// across the warp: where some lane's slot-3 index repeats the previous
+// lane's, __match_any_sync groups the lanes that hold the same index, the
+// group's minimum comes from __reduce_min_sync, and its lowest lane alone
+// issues the red.global.min. Other live slots issue theirs directly.
+// (Random indices almost never repeat within a warp, and a match is not
+// cheap: a match for every slot of every quad made the kernel slower on
+// random indices than one atomic an update.) Warps
+// take 32 consecutive quads, with a warp-uniform loop, so that the whole
+// warp takes part in every match. The fill is its own launch, but the
+// reduction is launched with programmatic dependent launch: its blocks
+// load and merge while the fill runs, and wait for the fill
+// (griddepcontrol.wait) only before their first red. The < 4 updates
+// before the first 16-byte boundary of idx (the head; idx and val share
+// their alignment) and after the last whole quad (the tail) take one
+// atomic each.
+__global__ void __launch_bounds__(THREADS)
+fill_trigger_kernel(int* __restrict__ out, int nt, int value) {
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int quads = nt / 4;
+  int4* out4 = reinterpret_cast<int4*>(out);
+  for (int q = first; q < quads; q += stride)
+    out4[q] = make_int4(value, value, value, value);
+  if (first < nt - 4 * quads) out[4 * quads + first] = value;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void red_min(int* addr, int v) {
+  asm volatile("red.relaxed.gpu.global.min.s32 [%0], %1;\n" ::"l"(addr),
+               "r"(v)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS)
+scatter_min_merged_kernel(const int* __restrict__ idx,
+                          const int* __restrict__ val, int* __restrict__ out,
+                          int head, int64_t quads, int64_t e) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const unsigned lane = threadIdx.x % 32;
+  const int4* idx4 = reinterpret_cast<const int4*>(idx + head);
+  const int4* val4 = reinterpret_cast<const int4*>(val + head);
+  const int64_t warps = (int64_t)gridDim.x * WARPS;
+  bool waited = false;
+  for (int64_t base = ((int64_t)blockIdx.x * WARPS + threadIdx.x / 32) * 32;
+       base < quads; base += warps * 32) {
+    const int64_t q = base + lane;
+    int k[4] = {0, 0, 0, 0}, v[4] = {0, 0, 0, 0};
+    bool live[4] = {false, false, false, false};
+    if (q < quads) {
+      const int4 a = __ldg(idx4 + q), b = __ldg(val4 + q);
+      k[0] = a.x; k[1] = a.y; k[2] = a.z; k[3] = a.w;
+      v[0] = b.x; v[1] = b.y; v[2] = b.z; v[3] = b.w;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        live[u] = k[u] != k[u + 1];
+        if (!live[u]) v[u + 1] = min(v[u + 1], v[u]);
+      }
+      live[3] = true;
+    }
+    if (!waited) {  // the fill's stores are complete and visible after this
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      waited = true;
+    }
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+      if (live[u]) red_min(out + k[u], v[u]);
+    bool lead = live[3];
+    int m = v[3];
+    const int prev = __shfl_up_sync(FULL, k[3], 1);
+    if (__any_sync(FULL, live[3] && lane > 0 && prev == k[3])) {
+      // a dead slot gets a key no index has, so it groups with no lane
+      const unsigned key = live[3] ? (unsigned)k[3] : (0x80000000u | lane);
+      const unsigned group = __match_any_sync(FULL, key);
+      m = __reduce_min_sync(group, v[3]);
+      lead = live[3] && (group & ((1u << lane) - 1)) == 0;
+    }
+    if (lead) red_min(out + k[3], m);
+  }
+  if (!waited) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int64_t tail = e - head - 4 * quads;
+    const int t = threadIdx.x;
+    const int64_t i = t < 4 ? (t < head ? t : -1)
+                            : (t - 4 < tail ? head + 4 * quads + (t - 4) : -1);
+    if (i >= 0) red_min(out + idx[i], val[i]);
+  }
 }
 
 // V1. out[i, j] = tab[idx[i, j] / 128, idx[i, j] % 128] on [M, 128] index
@@ -244,8 +501,41 @@ int access_take_two_level(const void* table, const void* idx, void* out,
   return last_error();
 }
 
-int access_take_scalar(const void* table, const void* idx, void* out, int e,
-                       void* stream) {
+int access_take_scalar(const void* table, const void* idx, void* out,
+                       void* cycles, int n, int e, int blocks, int head,
+                       int slice, int smem, void* stream) {
+  if (e <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      take_scalar_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(SCALAR_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // x / slice == (x * magic) >> 40 for x * slice < 2^40 (x < 2^19 here)
+  const unsigned long long magic =
+      slice > 0 ? ((1ull << 40) + slice - 1) / slice : 0;
+  err = cudaLaunchKernelEx(&cfg, take_scalar_cluster_kernel,
+                           static_cast<const int*>(table),
+                           static_cast<const int*>(idx),
+                           static_cast<int*>(out),
+                           static_cast<long long*>(cycles), n, e, head, slice,
+                           magic);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return last_error();
+}
+
+int access_take_scalar_l2(const void* table, const void* idx, void* out,
+                          int e, void* stream) {
   if (e <= 0) return 0;
   take_scalar_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(idx),
@@ -254,7 +544,32 @@ int access_take_scalar(const void* table, const void* idx, void* out, int e,
 }
 
 int access_scatter_min(const void* idx, const void* val, void* out, int nt,
-                       int e, int fill, void* stream) {
+                       int e, int head, int quads, int fill, void* stream) {
+  if (nt <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fill_trigger_kernel<<<grid_for((nt + 3) / 4), THREADS, 0, s>>>(
+      static_cast<int*>(out), nt, fill);
+  int err = last_error();
+  if (err != 0 || e <= 0) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_for(quads));
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t lerr = cudaLaunchKernelEx(
+      &cfg, scatter_min_merged_kernel, static_cast<const int*>(idx),
+      static_cast<const int*>(val), static_cast<int*>(out), head,
+      (int64_t)quads, (int64_t)e);
+  if (lerr != cudaSuccess) return static_cast<int>(lerr);
+  return last_error();
+}
+
+int access_scatter_min_atomic(const void* idx, const void* val, void* out,
+                              int nt, int e, int fill, void* stream) {
   if (nt <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   fill_kernel<<<grid_for(nt), THREADS, 0, s>>>(static_cast<int*>(out), nt,
@@ -265,6 +580,11 @@ int access_scatter_min(const void* idx, const void* val, void* out, int nt,
       static_cast<const int*>(idx), static_cast<const int*>(val),
       static_cast<int*>(out), e);
   return last_error();
+}
+
+int access_sm_clock_khz(int device, int* khz) {
+  return static_cast<int>(
+      cudaDeviceGetAttribute(khz, cudaDevAttrClockRate, device));
 }
 
 int access_take2d(const void* tab, const void* idx, void* out, int m,

@@ -1,5 +1,5 @@
-"""Gather and scatter-min access probes: eight hand-written CUDA kernels
-for Hopper, their plain PyTorch versions, and the wrappers.
+"""Gather and scatter-min access probes: hand-written CUDA kernels for
+Hopper, their plain PyTorch versions, and the wrappers.
 
 The JAX package has no module of this name: its eight Pallas probes live
 inside `main()` of `tools/probe_access.py` (C1 `pallas_take` :139, C2
@@ -10,6 +10,14 @@ inside `main()` of `tools/probe_access.py` (C1 `pallas_take` :139, C2
 is on this card. `rlap_tpu_torch/bench/probe_access.py` is the entry point
 that times them beside torch's own gathers and scatters.
 
+C3 (`take_scalar`) and C4 (`scatter_min`) were redesigned for Hopper: C3
+stages its table in the shared memory of a thread-block cluster and walks
+it with one thread; C4 merges equal indices in registers and across the
+warp before its atomics and overlaps its fill. Their first designs stay
+as previous variants, `take_scalar_l2` (one thread against L2) and
+`scatter_min_atomic` (one atomicMin an update after a separate fill), so
+that one run compares both.
+
 All tensors are int32 and contiguous. A table is `[n]`, or `[R, 128]` where
 the probe is two-level; indices are `[E]`, or `[M, 128]` tiles for the 2-D
 kernels, and must lie in `[0, table size)`: the kernels do not check them.
@@ -17,13 +25,20 @@ Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for CUDA tensors, or raises: there is no fallback on the card. Each
 launch adds one to `launch_counts[name]`. Results are bit-equal to the
 plain versions.
+
+`take_scalar` takes at most `TILE` indices and a table that `CLUSTER_MAX`
+blocks' shared memory holds (`scalar_plan`: 456,672 entries beside 8192
+indices), both 16-byte aligned for the bulk copies. `scatter_min` takes
+indices and values that lie at the same offset from a 16-byte boundary
+(views at any offset). The wrappers check this for CPU tensors too, so
+that both devices take the same inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,15 +49,72 @@ _STEM = "access"
 SOURCE = _build.source_path(_STEM)
 LANES = 128
 FILL = 2 ** 30  # the start value of the scatter-min table, as in the tool
+TILE = 8192  # the most indices of one scalar walk, the tool's tile
+# Hopper: the shared memory one block may use, and the portable cluster size
+SMEM_BLOCK = 232_448
+CLUSTER_MAX = 8
+BARRIER_BYTES = 16  # the mbarrier's slot at the head of a block's stage
 KERNELS = ("take", "take_two_level", "take_scalar", "scatter_min", "take2d",
            "take_axis0", "take_axis1", "take_axis0_axis1")
+# the first designs of C3 and C4, kept to compare with
+PREVIOUS = ("take_scalar_l2", "scatter_min_atomic")
+NAMES = KERNELS + PREVIOUS
 
-launch_counts = {name: 0 for name in KERNELS}
+launch_counts = {name: 0 for name in NAMES}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
+    for name in NAMES:
         launch_counts[name] = 0
+
+
+class ScalarPlan(NamedTuple):
+    """How `take_scalar` lays an n-entry table over a cluster: block 0
+    holds entries [0, head) and the index tile, block r >= 1 holds
+    [head + (r - 1) slice, head + r slice), the last block what is left.
+    `smem` is the dynamic shared memory of each block, in bytes."""
+    blocks: int
+    head: int
+    slice: int
+    smem: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def scalar_plan(n: int, e: int) -> ScalarPlan:
+    """The fewest blocks whose shared memory holds n table entries, block 0
+    holding as many as fit beside its e indices. Raises ValueError for
+    more than `TILE` indices or a table that `CLUSTER_MAX` blocks cannot
+    hold."""
+    if n <= 0 or not 0 <= e <= TILE:
+        raise ValueError(f"take_scalar: needs a table and at most {TILE} "
+                         f"indices, got n={n}, E={e}")
+    idx_bytes = _round_up(4 * e, 16)
+    cap0 = (SMEM_BLOCK - BARRIER_BYTES - idx_bytes) // 16 * 4
+    cap = (SMEM_BLOCK - BARRIER_BYTES) // 16 * 4
+    if n <= cap0:
+        return ScalarPlan(1, n, 0, BARRIER_BYTES + _round_up(4 * n, 16)
+                          + idx_bytes)
+    blocks = 1 + -(-(n - cap0) // cap)
+    if blocks > CLUSTER_MAX:
+        raise ValueError(
+            f"take_scalar: a table of {n} entries needs {blocks} blocks of "
+            f"{SMEM_BLOCK} bytes of shared memory; a cluster has at most "
+            f"{CLUSTER_MAX}, which hold {cap0 + (CLUSTER_MAX - 1) * cap} "
+            f"entries beside {e} indices")
+    slice_ = _round_up(-(-(n - cap0) // (blocks - 1)), 4)
+    return ScalarPlan(blocks, cap0, slice_,
+                      BARRIER_BYTES + max(4 * cap0 + idx_bytes, 4 * slice_))
+
+
+def vector_split(ptr: int, e: int) -> Tuple[int, int]:
+    """(head, quads): the updates before the first 16-byte boundary of an
+    int32 array at address `ptr`, and the whole quads of 4 after them, of
+    E updates; the rest is the tail."""
+    head = min((-ptr) % 16 // 4, e)
+    return head, (e - head) // 4
 
 
 def library_path() -> Path:
@@ -57,12 +129,31 @@ def build(extra_flags: Tuple[str, ...] = ()) -> Tuple[Path, str]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in KERNELS:
+    for name in NAMES:
         fn = getattr(lib, f"access_{name}")
         fn.argtypes = [ptr, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
     lib.access_take_two_level.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-    lib.access_scatter_min.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.access_take_scalar.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                       i32, i32, i32, ptr]
+    lib.access_scatter_min.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                       i32, ptr]
+    lib.access_scatter_min_atomic.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                              ptr]
+    lib.access_sm_clock_khz.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.access_sm_clock_khz.restype = ctypes.c_int
+
+
+def sm_clock_khz(device=None) -> int:
+    """The card's rated SM clock in kHz (`cudaDevAttrClockRate`), which
+    turns the cycle counts of `take_scalar` into time."""
+    dev = torch.device("cuda" if device is None else device)
+    khz = ctypes.c_int(0)
+    err = _build.load(_STEM, _declare).access_sm_clock_khz(
+        dev.index or 0, ctypes.byref(khz))
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed, cudaError {err}")
+    return khz.value
 
 
 def _launch(name: str, tensors, *sizes: int) -> None:
@@ -87,6 +178,14 @@ def _check(name: str, table: torch.Tensor, idx: torch.Tensor,
                              f"{tuple(t.shape)}")
     if table.numel() == 0:
         raise ValueError(f"{name}: empty table")
+
+
+def _aligned16(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tuple(t.shape)} tensor at address "
+                             f"{t.data_ptr():#x} is not 16-byte aligned, as "
+                             f"the bulk copies need")
 
 
 def _rows_lanes(idx: torch.Tensor):
@@ -159,27 +258,82 @@ def take_two_level(tab2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def take_scalar(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """C3: the lookup by one thread, one element after another."""
+def take_scalar(table: torch.Tensor, idx: torch.Tensor,
+                cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C3: the lookup by one thread, one element after another, with the
+    table in the shared memory of a cluster (`scalar_plan`). On the card,
+    an int64 `cycles` of 3 entries receives the staging and walk spans in
+    SM cycles and how many reads went to another block."""
     _check("take_scalar", table, idx, two_level=False, tiles=False)
+    cpu = _on_cpu(table, idx)
+    plan = scalar_plan(table.numel(), idx.numel())
+    _aligned16("take_scalar", table, idx)
+    if cpu:
+        if cycles is not None:
+            raise ValueError("take_scalar: cycles are counted on the card "
+                             "only")
+        return take_plain(table, idx)
+    if cycles is not None and (cycles.dtype != torch.int64
+                               or cycles.numel() < 3
+                               or cycles.device != table.device
+                               or not cycles.is_contiguous()):
+        raise ValueError(f"take_scalar: cycles must be a contiguous int64 "
+                         f"tensor of 3 on {table.device}")
+    out = torch.empty_like(idx)
+    _launch("take_scalar", (table, idx, out),
+            None if cycles is None else cycles.data_ptr(), table.numel(),
+            idx.numel(), *plan)
+    return out
+
+
+def take_scalar_l2(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """C3's previous design: the one-thread walk against device memory,
+    table and indices served by L2; any E."""
+    _check("take_scalar_l2", table, idx, two_level=False, tiles=False)
     if _on_cpu(table, idx):
         return take_plain(table, idx)
     out = torch.empty_like(idx)
-    _launch("take_scalar", (table, idx, out), idx.numel())
+    _launch("take_scalar_l2", (table, idx, out), idx.numel())
     return out
+
+
+def _scatter_args(name: str, idx, val, size: int) -> bool:
+    """Checks both scatter-min wrappers share; True for CPU tensors."""
+    if idx.dim() != 1 or idx.shape != val.shape or size <= 0:
+        raise ValueError(f"{name}: indices {tuple(idx.shape)} and values "
+                         f"{tuple(val.shape)} must be equal [E], size "
+                         f"{size} > 0")
+    if size >= 2 ** 31:
+        raise ValueError(f"{name}: a table of {size} entries does not fit "
+                         f"int32")
+    return _on_cpu(idx, val)
 
 
 def scatter_min(idx: torch.Tensor, val: torch.Tensor,
                 size: int) -> torch.Tensor:
-    """C4: a `[size]` table of 2**30, min-reduced with `val` at `idx`."""
-    if idx.dim() != 1 or idx.shape != val.shape or size <= 0:
-        raise ValueError(f"scatter_min: indices {tuple(idx.shape)} and values "
-                         f"{tuple(val.shape)} must be equal [E], size "
-                         f"{size} > 0")
-    if _on_cpu(idx, val):
+    """C4: a `[size]` table of 2**30, min-reduced with `val` at `idx`;
+    equal indices merged before the atomics. `idx` and `val` may be views
+    at any offset, but at the same offset from a 16-byte boundary."""
+    cpu = _scatter_args("scatter_min", idx, val, size)
+    if idx.data_ptr() % 16 != val.data_ptr() % 16:
+        raise ValueError(f"scatter_min: indices at {idx.data_ptr():#x} and "
+                         f"values at {val.data_ptr():#x} lie at different "
+                         f"offsets from a 16-byte boundary")
+    if cpu:
         return scatter_min_plain(idx, val, size)
     out = torch.empty((size,), dtype=torch.int32, device=idx.device)
-    _launch("scatter_min", (idx, val, out), size, idx.numel(), FILL)
+    _launch("scatter_min", (idx, val, out), size, idx.numel(),
+            *vector_split(idx.data_ptr(), idx.numel()), FILL)
+    return out
+
+
+def scatter_min_atomic(idx: torch.Tensor, val: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """C4's previous design: a fill, then one atomicMin an update."""
+    if _scatter_args("scatter_min_atomic", idx, val, size):
+        return scatter_min_plain(idx, val, size)
+    out = torch.empty((size,), dtype=torch.int32, device=idx.device)
+    _launch("scatter_min_atomic", (idx, val, out), size, idx.numel(), FILL)
     return out
 
 

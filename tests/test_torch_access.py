@@ -4,13 +4,21 @@ that the TPU tools use as their own references (`tools/probe_access.py`
 `take_along_axis` calls of `k_v4` run outside Pallas). The Pallas calls
 themselves name `pltpu.VMEM` inside `main()` and cannot run on the CPU.
 Integers: exact equality. Shapes: n = 1000 (not a multiple of 128) with
-E = 4096 and with a ragged E = 12345, M = 97 index tiles."""
+E = 4096 and with a ragged E = 12345, M = 97 index tiles; the scatter-mins
+also on hub-heavy streams (`tests/test_torch_access_cases.py`: sorted runs of
+one index up to 3000 long, E not a multiple of 4, E < 32, one index only,
+views one element into their storage). Beside them, what the redesigned
+C3 and C4 compute in Python: the cluster plan of `take_scalar`, the
+vector split of `scatter_min`, the atomics its merge leaves, and the
+inputs both wrappers refuse."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_access_cases as cases
 
+from rlap_tpu_torch.bench import probe_access as P
 from rlap_tpu_torch.ops import access as A
 
 N = 1000
@@ -26,6 +34,15 @@ def _inputs(e, m, seed=0):
                 idx=r.integers(0, N, e).astype(np.int32),
                 val=r.integers(0, 1 << 20, e).astype(np.int32),
                 idx2=r.integers(0, N, (m, 128)).astype(np.int32))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -128,3 +145,102 @@ def test_wrappers_reject_wrong_shapes():
         A.scatter_min(idx, _t(d["val"])[:10], NT)
     with pytest.raises(ValueError):
         A.scatter_min(idx, _t(d["val"]), 0)
+
+
+@pytest.mark.parametrize("fn", [A.scatter_min, A.scatter_min_atomic])
+@pytest.mark.parametrize("name", list(cases.STREAMS))
+def test_scatter_min_hub_streams_match_jnp(name, fn):
+    idx, val = cases.hub_stream(name)
+    ref = jnp.full((cases.SIZE,), 2 ** 30, jnp.int32).at[
+        jnp.asarray(idx.numpy())].min(jnp.asarray(val.numpy()))
+    _same(fn(idx, val, cases.SIZE), ref)
+
+
+@pytest.mark.parametrize("name,reds", [("all_equal", 41), ("e_below_32", 10),
+                                       ("runs_to_3000", 183)])
+def test_merged_atomics_of_hub_streams(name, reds):
+    """One hub of 5001 updates: a red for each warp's 32 quads (40 warps)
+    and one for the tail update. Runs leave at least one each, and fewer
+    than their updates."""
+    idx, _val = cases.hub_stream(name)
+    assert P.merged_reds(idx) == reds
+    runs = int((idx[1:] != idx[:-1]).sum()) + 1
+    assert runs <= reds < idx.numel()
+
+
+def test_merged_atomics_of_distinct_indices():
+    """Without repeats no update merges: one atomic each, head and tail
+    included."""
+    store = torch.randperm(4000, generator=torch.Generator().manual_seed(0))
+    idx = store.to(torch.int32)[3:3 + 2001]
+    assert A.vector_split(idx.data_ptr(), 2001)[0] == 1
+    assert P.merged_reds(idx) == 2001
+
+
+@pytest.mark.parametrize("offset,e,split", [(0, 10, (0, 2)), (4, 10, (3, 1)),
+                                            (8, 2, (2, 0)), (12, 7, (1, 1)),
+                                            (0, 3, (0, 0))])
+def test_vector_split(offset, e, split):
+    head, quads = A.vector_split(0x7f00 + offset, e)
+    assert (head, quads) == split
+    assert 0 <= e - head - 4 * quads < 4
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (1000, 1), (49_916, 1),
+                                      (49_917, 2), (100_000, 2),
+                                      (108_024, 2), (108_025, 3),
+                                      (456_672, 8)])
+def test_scalar_plan_edges(n, blocks):
+    """k = 1, 2 and 8 at the edges of each step, for a full tile of
+    indices: block 0 holds 49916 entries beside them, the others 58108."""
+    plan = A.scalar_plan(n, A.TILE)
+    assert plan.blocks == blocks
+    assert plan.smem <= A.SMEM_BLOCK
+    if blocks == 1:
+        assert plan.head == n
+        return
+    assert plan.head == 49_916 and plan.head % 4 == 0 and plan.slice % 4 == 0
+    assert plan.slice <= 58_108
+    assert plan.head + (blocks - 2) * plan.slice < n
+    assert plan.head + (blocks - 1) * plan.slice >= n
+    # block 0: its barrier, its slice and the index tile
+    assert plan.smem >= A.BARRIER_BYTES + 4 * plan.head + 4 * A.TILE
+
+
+def test_scalar_plan_raises_beyond_a_cluster():
+    with pytest.raises(ValueError, match="at most 8"):
+        A.scalar_plan(456_673, A.TILE)
+    with pytest.raises(ValueError):
+        A.scalar_plan(1000, A.TILE + 1)
+    # a shorter tile leaves block 0 more room
+    assert A.scalar_plan(456_673, 4096).blocks == 8
+
+
+def test_take_scalar_rejects_unaligned_or_oversized_input():
+    d = _inputs(4096, 32)
+    table, idx = _t(d["table"]), _t(d["idx"])
+    assert table.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
+    for bad in ((table[1:], idx), (table, idx[1:]),
+                (table, torch.zeros(A.TILE + 1, dtype=torch.int32)),
+                (torch.zeros(500_000, dtype=torch.int32), idx)):
+        with pytest.raises(ValueError):
+            A.take_scalar(*bad)
+    with pytest.raises(ValueError, match="card"):
+        A.take_scalar(table, idx, cycles=torch.zeros(3, dtype=torch.int64))
+    # the previous design walks any E from any offset
+    _same(A.take_scalar_l2(table, idx[1:]),
+          jnp.asarray(d["table"])[jnp.asarray(d["idx"][1:])])
+
+
+def test_scatter_min_rejects_unaligned_or_oversized_input():
+    d = _inputs(4096, 32, 9)
+    idx, val = _t(d["idx"]), _t(d["val"])
+    with pytest.raises(ValueError, match="16-byte"):
+        A.scatter_min(idx[1:4001], val[2:4002], NT)
+    for fn in (A.scatter_min, A.scatter_min_atomic):
+        with pytest.raises(ValueError, match="int32"):
+            fn(idx, val, 2 ** 31)
+    # the previous design takes any offsets
+    ref = jnp.full((NT,), 2 ** 30, jnp.int32).at[
+        jnp.asarray(d["idx"][1:4001])].min(jnp.asarray(d["val"][2:4002]))
+    _same(A.scatter_min_atomic(idx[1:4001], val[2:4002], NT), ref)

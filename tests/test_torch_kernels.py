@@ -10,12 +10,16 @@ atol 1e-6, in float32 with TF32 off; on alike rows all three kernels are
 held against float64, within 1e-4 of the largest entry (dB 2e-4 on rows
 alike to 0.003, where the rounding of its float32 coefficients reaches it
 through its column sums). The access probes are int32 and must be
-bit-equal.
+bit-equal: the eight kernels and the previous designs of C3 and C4 at the
+probes' shapes, both scatter-mins on hub-heavy streams
+(`tests/test_torch_access_cases.py`), and the cluster walk of C3 at each
+cluster size of its plan, with its cycle counts.
 """
 
 import numpy as np
 import pytest
 import torch
+import test_torch_access_cases as cases
 
 from rlap_tpu_torch.bench import probe_access as P
 from rlap_tpu_torch.ops import access as A
@@ -211,7 +215,7 @@ ACCESS_SHAPES = [(4096, 16384, 128), (1000, 12345, 97)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", A.KERNELS)
+@pytest.mark.parametrize("name", A.NAMES)
 @pytest.mark.parametrize("n,e,m", ACCESS_SHAPES)
 def test_cuda_access_kernel_matches_plain(name, n, e, m):
     _needs_card()
@@ -235,7 +239,7 @@ def test_cuda_two_level_take_covers_several_chunks():
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("name", A.KERNELS)
+@pytest.mark.parametrize("name", A.NAMES)
 def test_access_cpu_tensors_take_the_plain_version(name):
     inp = P.make_inputs(1000, 777, 5, 1, "cpu", seed=3)
     kern, plain, args = P._calls(inp)[name]
@@ -245,7 +249,7 @@ def test_access_cpu_tensors_take_the_plain_version(name):
     assert A.launch_counts == before
 
 
-@pytest.mark.parametrize("name", A.KERNELS)
+@pytest.mark.parametrize("name", A.NAMES)
 def test_access_wrappers_never_fall_back_off_the_cpu(name):
     """A `meta` tensor never reaches the plain version: the wrapper
     raises. So does a wrong shape."""
@@ -258,12 +262,76 @@ def test_access_wrappers_never_fall_back_off_the_cpu(name):
     mixed = (args[0][0].to("meta"),) + tuple(args[0][1:])
     with pytest.raises(ValueError):
         kern(*mixed)
-    bad = inp["idx2"][0] if name in A.KERNELS[:4] else inp["idx"][0]
+    one_d = A.KERNELS[:4] + A.PREVIOUS
+    bad = inp["idx2"][0] if name in one_d else inp["idx"][0]
     with pytest.raises(ValueError):
-        if name == "scatter_min":
+        if name.startswith("scatter_min"):
             kern(bad, bad, 1000)
         else:
             kern(args[0][0], bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["scatter_min", "scatter_min_atomic"])
+@pytest.mark.parametrize("stream", list(cases.STREAMS))
+def test_cuda_scatter_min_hub_streams_match_plain(stream, fn):
+    """Runs of one index up to 3000 long, a ragged E, E < 32, one index
+    only, and views one element into their storage (a head of 3 updates
+    before the first 16-byte boundary)."""
+    _needs_card()
+    idx, val = cases.hub_stream(stream, "cuda")
+    got = getattr(A, fn)(idx, val, cases.SIZE)
+    ref = A.scatter_min_plain(idx, val, cases.SIZE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+# n, E, cluster size: each edge of the plan, tails of 1-3 entries in the
+# last slice and in the index tile
+SCALAR_CASES = [(1000, 8192, 1), (49_916, 8192, 1), (49_917, 8192, 2),
+                (100_000, 8192, 2), (100_000, 13, 2), (108_025, 8191, 3),
+                (456_672, 8192, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,blocks", SCALAR_CASES)
+def test_cuda_take_scalar_cluster_matches_plain(n, e, blocks):
+    """Both designs of C3 bit-equal; the cycles buffer holds positive
+    staging and walk spans and counts as remote exactly the indices past
+    block 0's slice."""
+    _needs_card()
+    plan = A.scalar_plan(n, e)
+    assert plan.blocks == blocks
+    gen = torch.Generator(device="cuda").manual_seed(n + e)
+    table = torch.randint(0, 1 << 30, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    idx = torch.randint(0, n, (e,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    cyc = torch.zeros(3, dtype=torch.int64, device="cuda")
+    got = A.take_scalar(table, idx, cycles=cyc)
+    prev = A.take_scalar_l2(table, idx)
+    ref = A.take_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(prev, ref)
+    stage, walk, remote = cyc.tolist()
+    assert stage > 0 and walk > 0
+    assert remote == int((idx >= plan.head).sum())
+
+
+@pytest.mark.cuda
+def test_cuda_access_wrappers_refuse_unaligned_input():
+    """The bulk copies of C3 need 16-byte aligned tensors, and C4's
+    vector loads indices and values at one offset: refused, not run some
+    other way."""
+    _needs_card()
+    table = torch.arange(1001, dtype=torch.int32, device="cuda")
+    idx = torch.arange(1001, dtype=torch.int32, device="cuda") % 1000
+    with pytest.raises(ValueError):
+        A.take_scalar(table[1:], idx[:100])
+    with pytest.raises(ValueError):
+        A.take_scalar(table, idx[1:])
+    with pytest.raises(ValueError):
+        A.scatter_min(idx[1:900], idx[2:901], 1000)
 
 
 def test_probe_entry_point_runs_on_the_cpu():
@@ -273,10 +341,24 @@ def test_probe_entry_point_runs_on_the_cpu():
     res = P.run(1000, 4096, 2, device="cpu", emit=lines.append)
     assert res["device"] == "cpu" and res["timer"] == "host clock"
     assert set(res["kernels"]) == set(A.KERNELS)
-    for row in res["kernels"].values():
+    assert set(res["previous"]) == set(A.PREVIOUS)
+    for row in [*res["kernels"].values(), *res["previous"].values()]:
         assert row["max_abs_err"] == 0 and row["launches"] == 0
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert any(line.startswith("A1 ") for line in lines)
+
+
+def test_time_stream_runs_on_the_cpu():
+    """`time_stream` on a hub stream: every kernel and previous design
+    bit-equal to its plain version, and the atomics C4's merge leaves."""
+    idx, val = cases.hub_stream("runs_to_3000")
+    table = torch.arange(cases.SIZE, dtype=torch.int32) * 7
+    res = P.time_stream(table, idx, idx, val, 2)
+    assert res["max_abs_err"] == {name: 0 for name in (
+        "take", "take_scalar", "take_scalar_l2", "scatter_min",
+        "scatter_min_atomic")}
+    assert res["scatter_min_reds"] == P.merged_reds(idx) == 183
+    assert all(res[k] > 0 for k in ("scatter_min_ms", "take_scalar_ms"))
 
 
 @pytest.mark.cuda
