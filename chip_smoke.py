@@ -9,10 +9,11 @@
 2. Builds both kernel libraries with nvcc, side by side: the InfoNCE
    kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the access probes
    (`rlap_tpu_torch/csrc/access.cu`: the eight, and the previous designs
-   of C3 and C4), and prints ptxas's resource lines (registers, spills,
-   static shared memory) and remarks, one line each for the redesigned
-   C3 and C4 kernels, the dynamic shared memory of the tensor-core
-   kernels and of C3's cluster, and how many `wgmma` (HGMMA) and full
+   of C2, C3, C4 and V4), and prints ptxas's resource lines (registers,
+   spills, static shared memory) and remarks, one line each for the
+   redesigned C2, C3, C4 and V4 kernels, the dynamic shared memory of the
+   tensor-core kernels and of the C2, C3 and V4 clusters, and how many
+   `wgmma` (HGMMA) and full
    waits behind them (WARPGROUP.DEPBAR) the machine code of each `wgmma`
    kernel holds.
 3. Holds each InfoNCE kernel against its plain PyTorch version: n=2048
@@ -31,21 +32,26 @@
    plain float32 versions and of the plain emulation of the kernels' 3xTF32
    arithmetic beside.
 4. Probe phase. Holds the eight access kernels and the previous designs
-   of C3 and C4 (`take_scalar_l2`, `scatter_min_atomic`) bit-equal
-   against their plain versions at a ragged shape (n=1000, E=12345, M=97
-   index tiles; C3's cluster is 1 block), one launch counted per call;
-   holds `take`, both scatter-mins and both scalar walks bit-equal on the
-   index stream of the rLap selection on BA(n, m=8) (both endpoints of
-   the canonical edge pool; C3 on its first 8192 gather indices, a
-   cluster of 2) and times them beside torch's `index_select` and
-   `scatter_reduce_`, with the atomics C4's merge leaves, and the
+   of C2, C3, C4 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
+   `scatter_min_atomic`, `take_axis0_axis1_l2`) bit-equal against their
+   plain versions at a ragged shape (n=1000, E=12345, M=97 index tiles;
+   C3's cluster is 1 block), one launch counted per call; holds `take`,
+   both designs of C2 (and of V4, on the stream's whole rows of 128),
+   both scatter-mins and both scalar walks bit-equal
+   on the index stream of the rLap selection on BA(n, m=8) (both
+   endpoints of the canonical edge pool; C3 on its first 8192 gather
+   indices, a cluster of 2) and times them beside torch's `index_select`
+   and `scatter_reduce_`, with the atomics C4's merge leaves, and the
    selection itself as the port runs it in a view's first round; then
    drives the probe entry point `rlap_tpu_torch.bench.probe_access.run`
    at n=100000, E=1600000 with the access counts set to 0 just before
    and read just after. The entry point holds each kernel bit-equal at
-   that shape before it times it, and reads C3's staging and walk cycles
-   and its local and remote reads on random, block-0-only and
-   other-block-only indices.
+   that shape before it times it; holds C2 and V4 bit-equal at every
+   cluster size of 2, 4 and 8 and times them there, with the clusters
+   launched, the bytes staged and cluster 0's staging and lookup spans;
+   times C1 and both designs of C2 and V4 again on twice the indices, for
+   their rate of reads apart from launch, staging and tail; and reads C3's staging and walk cycles and its local and remote
+   reads on random, block-0-only and other-block-only indices.
 5. Checks that `approximate_cholesky(barabasi_albert(2000, 8), rng.key(0),
    400)` runs with no `device=` anywhere.
 6. Drives the training path: GraceTrainer(Compose([RLap(0.2),
@@ -105,7 +111,7 @@
    t = n/2 call beside the single-device `eliminate`'s.
 10. Prints one JSON line of the probe, one of the main path, one of each
    bench, one of the CLI phase, one of the sharded phase, one of all
-   eleven kernels and the two previous designs (each row with the card's
+   eleven kernels and the four previous designs (each row with the card's
    name and power limit), the nvidia-smi line, and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
    exits non-zero.
@@ -193,6 +199,7 @@ REPLACES = {
     "infonce_bwd_db": "rlap_tpu/ops/infonce_pallas.py:104",
     "take": "tools/probe_access.py:139",
     "take_two_level": "tools/probe_access.py:180",
+    "take_two_level_chunks": "tools/probe_access.py:180",
     "take_scalar": "tools/probe_access.py:215",
     "scatter_min": "tools/probe_access.py:251",
     "take_scalar_l2": "tools/probe_access.py:215",
@@ -201,6 +208,7 @@ REPLACES = {
     "take_axis0": "tools/probe_access2.py:102",
     "take_axis1": "tools/probe_access2.py:143",
     "take_axis0_axis1": "tools/probe_access2.py:194",
+    "take_axis0_axis1_l2": "tools/probe_access2.py:194",
 }
 TOL = {"infonce_fwd": (1e-5, 1e-5), "infonce_bwd_da": (1e-4, 1e-6),
        "infonce_bwd_db": (1e-4, 1e-6)}
@@ -462,8 +470,11 @@ def probe_phase(g) -> tuple:
     stream["select_round1_selected"] = int(
         _select(s, r, pending, prio64).sum())
     stream["take_scalar_cluster"] = A.scalar_plan(n, P.TILE).blocks
-    print(f"rlap_select_stream BA(n={n}, m=8), take, both scatter-mins and "
-          f"both scalar walks bit-equal: {json.dumps(stream)}", flush=True)
+    stream["take_two_level_plan"] = A.table_plan(-(-n // A.LANES)
+                                                 * A.LANES)._asdict()
+    print(f"rlap_select_stream BA(n={n}, m=8), take, both designs of C2 "
+          f"and V4, both scatter-mins and both scalar walks bit-equal: "
+          f"{json.dumps(stream)}", flush=True)
 
     A.reset_launch_counts()
     res = P.run(PROBE_N, PROBE_E, PROBE_REPS,
@@ -480,6 +491,27 @@ def probe_phase(g) -> tuple:
     print(f"take_scalar cycles at n={PROBE_N}, a cluster of "
           f"{cyc['plan']['blocks']} ({json.dumps(cyc['plan'])}), "
           f"{cyc['sm_clock_khz']} kHz: " + "; ".join(parts), flush=True)
+    khz = cyc["sm_clock_khz"]
+    for kname, rows in res["by_cluster"].items():
+        print(f"{kname} by cluster at n={PROBE_N}: " + "; ".join(
+            f"k={k} {r['ms']:.5f} ms, {r['clusters']} clusters, "
+            f"{r['staged_bytes']} bytes staged, stage {r['stage_cycles']} "
+            f"({r['stage_cycles'] / khz:.5f} ms) lookup "
+            f"{r['lookup_cycles']} ({r['lookup_cycles'] / khz:.5f} ms) "
+            f"cycles" for k, r in rows.items()), flush=True)
+    for name in ("take_two_level", "take_axis0_axis1"):
+        r = res["kernels"][name]
+        print(f"{name} default plan {json.dumps(r['plan'])}: {r['ms']:.5f} "
+              f"ms, staging {r['stage_cycles']} of "
+              f"{r['stage_cycles'] + r['lookup_cycles']} cycles "
+              f"({r['stage_share']:.3f}), {r['clusters']} clusters, "
+              f"{r['lookup_reads_per_s']:.4g} reads/s over the lookup span",
+              flush=True)
+    print(f"read rates at n={PROBE_N} (E and 2E indices; reads/s of the "
+          f"added E, and the fixed ms): " + "; ".join(
+              f"{k} {r['ms']:.5f} / {r['ms_twice']:.5f} ms, "
+              f"{r['reads_per_s']} reads/s, fixed {r['fixed_ms']:.5f}"
+              for k, r in res["read_rates"].items()), flush=True)
     for name in A.NAMES:
         row = {**res["kernels"], **res["previous"]}[name]
         # the entry point's own comparison with the plain version is one
@@ -1202,13 +1234,20 @@ def main(argv=None) -> int:
                     or "spill" in line or "C75" in line):
                 print(f"  ptxas: {line.strip()}")
     for kname, usage in ptxas_usage(built[1][1], (
-            "take_scalar_cluster_kernel", "fill_trigger_kernel",
-            "scatter_min_merged_kernel")).items():
-        print(f"  ptxas, redesigned C3 / C4: {kname}: {usage}", flush=True)
+            "take_two_level_cluster_kernel", "take_scalar_cluster_kernel",
+            "fill_trigger_kernel", "scatter_min_merged_kernel",
+            "take_axis0_axis1_shuffle_kernel")).items():
+        print(f"  ptxas, redesigned C2 / C3 / C4 / V4: {kname}: {usage}",
+              flush=True)
     plan = A.scalar_plan(PROBE_N, P.TILE)
     print(f"  dynamic shared memory of take_scalar_cluster_kernel at "
           f"n={PROBE_N}: {plan.smem} bytes a block, a cluster of "
           f"{plan.blocks}", flush=True)
+    nt = -(-PROBE_N // A.LANES) * A.LANES
+    print(f"  dynamic shared memory of take_two_level_cluster_kernel and "
+          f"take_axis0_axis1_shuffle_kernel at n={PROBE_N}, by cluster "
+          f"size: " + ", ".join(f"k={k} {A.table_plan(nt, k).smem} bytes "
+                                f"a block" for k in P.SWEEP), flush=True)
     print("  dynamic shared memory a block at f <= 128: infonce_fwd (wgmma) "
           "197632 bytes (4 stages and 2 lo planes of 64 x 128 floats), "
           "infonce_bwd_da and infonce_bwd_db (wgmma) 230400 bytes each (64 "
@@ -1269,6 +1308,15 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["yardstick_ms"],
             "previous_design": name in A.PREVIOUS, "card": smi,
             "shape": {"table": probe["n"], "indices": row["elements"]}})
+        if name in ("take_two_level", "take_axis0_axis1"):
+            kernels[-1].update(
+                plan=row["plan"], stage_share=row["stage_share"],
+                clusters=row["clusters"],
+                lookup_reads_per_s=row["lookup_reads_per_s"],
+                ms_by_cluster={k: r["ms"] for k, r in
+                               probe["by_cluster"][name].items()})
+        if name in P.RATED:
+            kernels[-1]["read_rate"] = probe["read_rates"][name]
         if name == "take_scalar":
             # the one-thread walk's own floor, from its cycles in this run
             kernels[-1]["walk_floor_ms"] = \

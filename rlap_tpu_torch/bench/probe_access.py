@@ -14,12 +14,21 @@ size n and index count E of a graph (defaults: BA(100k, m=8)):
      and on sorted indices;
   D. `torch.sort` of E keys with two payloads;
   C1-C4, V1-V4. the eight hand-written kernels of
-     `rlap_tpu_torch/ops/access.py`, and the previous designs of C3 and C4
-     (`take_scalar_l2`, `scatter_min_atomic`), each held bit-equal against
-     its plain version first, then timed beside that plain version and a
-     yardstick: A1 for the lookups, `index_select` of the same 8192
+     `rlap_tpu_torch/ops/access.py`, and the previous designs of C2, C3,
+     C4 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
+     `scatter_min_atomic`, `take_axis0_axis1_l2`), each held bit-equal
+     against its plain version first, then timed beside that plain version
+     and a yardstick: A1 for the lookups, `index_select` of the same 8192
      indices for C3, B2 for the scatter-mins, `take_along_dim` on
      ready-made int64 indices for V2-V4;
+  C2/V4 by cluster. C2 and V4 at every cluster size of (2, 4, 8) whose
+     shared memory holds the table, each held bit-equal first: ms,
+     clusters launched, bytes staged and (on the card) cluster 0's staging
+     and lookup spans in SM cycles, and the lookup's rate of reads;
+  Read rates. C1, both designs of C2 and both of V4 timed again on twice
+     the indices (each set and the next, end to end): E over the added
+     time is the rate of reads with the launch, the staging and the tail
+     taken out, and 2 t(E) - t(2E) is that fixed part;
   C3 cycles. the staging and walk spans of `take_scalar` in SM cycles, on
      random indices and, where the table spans more than one block, on
      indices that all fall in block 0's slice (local reads) and all in the
@@ -122,6 +131,8 @@ def _calls(inp: dict) -> Dict[str, tuple]:
         "take": (A.take, A.take_plain, one_d),
         "take_two_level": (A.take_two_level, A.take_two_level_plain,
                            two_level),
+        "take_two_level_chunks": (A.take_two_level_chunks,
+                                  A.take_two_level_plain, two_level),
         "take_scalar": (A.take_scalar, A.take_plain, scalar),
         "scatter_min": (A.scatter_min, A.scatter_min_plain, scatter),
         "take2d": (A.take2d, A.take_two_level_plain, tiles),
@@ -129,6 +140,8 @@ def _calls(inp: dict) -> Dict[str, tuple]:
         "take_axis1": (A.take_axis1, A.take_axis1_plain, tiles),
         "take_axis0_axis1": (A.take_axis0_axis1, A.take_axis0_axis1_plain,
                              tiles),
+        "take_axis0_axis1_l2": (A.take_axis0_axis1_l2,
+                                A.take_axis0_axis1_plain, tiles),
         "take_scalar_l2": (A.take_scalar_l2, A.take_plain, scalar),
         "scatter_min_atomic": (A.scatter_min_atomic, A.scatter_min_plain,
                                scatter),
@@ -177,8 +190,11 @@ def bounds_ms(inp: dict) -> Dict[str, float]:
         "take_axis1": 8 * cells + 4 * A.LANES,
         "take_axis0_axis1": 8 * cells + 4 * nt,
     }
-    nbytes["take_scalar_l2"] = nbytes["take_scalar"]
-    nbytes["scatter_min_atomic"] = nbytes["scatter_min"]
+    for prev, kname in (("take_two_level_chunks", "take_two_level"),
+                        ("take_scalar_l2", "take_scalar"),
+                        ("scatter_min_atomic", "scatter_min"),
+                        ("take_axis0_axis1_l2", "take_axis0_axis1")):
+        nbytes[prev] = nbytes[kname]
     return {k: 1e3 * v / HBM_BYTES for k, v in nbytes.items()}
 
 
@@ -209,24 +225,39 @@ def merged_reds(idx: torch.Tensor) -> int:
 def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
                 scatter_idx: torch.Tensor, val: torch.Tensor,
                 reps: int) -> dict:
-    """`take` by `gather_idx`, and both designs of `scatter_min` of `val`
-    at `scatter_idx`, on given index streams, beside torch's
+    """`take` and both designs of `take_two_level` (the table padded to
+    rows of 128) by `gather_idx`, and both designs of `scatter_min` of
+    `val` at `scatter_idx`, on given index streams, beside torch's
     `index_select` and `scatter_reduce_("amin")` on the same streams as
     int64; and both designs of `take_scalar` on the first `TILE` indices
-    of `gather_idx`. Each is held bit-equal to its plain version first.
+    of `gather_idx`. Each is held bit-equal to its plain version first,
+    and so are both designs of `take_axis0_axis1` on the whole rows of
+    128 of `gather_idx` (not timed).
     Each repetition works on its own copy of the streams, so that the
     indices come from device memory and not from L2."""
     n = table.shape[0]
+    nt = -(-n // A.LANES) * A.LANES
+    tab2d = torch.cat([table, table.new_zeros(nt - n)]).view(-1, A.LANES)
     sets = range(reps + 1)
     gathers = [gather_idx.clone() for _ in sets]
     scatters = [scatter_idx.clone() for _ in sets]
     vals = [val.clone() for _ in sets]
     tile = gather_idx[:TILE]
     ref = A.scatter_min_plain(scatter_idx, val, n)
+    looked_up = A.take_plain(table, gather_idx)
+    rows = gather_idx[:gather_idx.numel() // A.LANES * A.LANES].view(
+        -1, A.LANES)
+    by_rows = A.take_axis0_axis1_plain(tab2d, rows)
     errs = {}
     for name, (got, want) in (
-            ("take", (A.take(table, gather_idx),
-                      A.take_plain(table, gather_idx))),
+            ("take", (A.take(table, gather_idx), looked_up)),
+            ("take_two_level", (A.take_two_level(tab2d, gather_idx),
+                                looked_up)),
+            ("take_two_level_chunks",
+             (A.take_two_level_chunks(tab2d, gather_idx), looked_up)),
+            ("take_axis0_axis1", (A.take_axis0_axis1(tab2d, rows), by_rows)),
+            ("take_axis0_axis1_l2",
+             (A.take_axis0_axis1_l2(tab2d, rows), by_rows)),
             ("take_scalar", (A.take_scalar(table, tile),
                              A.take_plain(table, tile))),
             ("take_scalar_l2", (A.take_scalar_l2(table, tile),
@@ -243,6 +274,10 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
     return {
         "n": n, "e": gather_idx.shape[0],
         "take_ms": time_ms(A.take, [(table, i) for i in gathers]),
+        "take_two_level_ms": time_ms(A.take_two_level,
+                                     [(tab2d, i) for i in gathers]),
+        "take_two_level_chunks_ms": time_ms(A.take_two_level_chunks,
+                                            [(tab2d, i) for i in gathers]),
         "index_select_ms": time_ms(
             _index_select, [(table, i.to(torch.int64)) for i in gathers]),
         "scatter_min_ms": time_ms(A.scatter_min, scatter_args),
@@ -327,8 +362,11 @@ def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
     tile = min(TILE, inp["e"])
     scalar = time_ms(_index_select, [(inp["table"], i[:tile].to(torch.int64))
                                      for i in inp["idx"]])
+    v4 = time_ms(lambda t, r, ln: torch.take_along_dim(
+        torch.take_along_dim(t, r, 0), ln, 1),
+        [(tab2d, r, ln) for r, ln in zip(rows, lanes)])
     return {
-        "take": a1, "take_two_level": a1,
+        "take": a1, "take_two_level": a1, "take_two_level_chunks": a1,
         "take_scalar": scalar, "take_scalar_l2": scalar,
         "take2d": time_ms(_index_select,
                           [(inp["tpad"], i.reshape(-1).to(torch.int64))
@@ -339,10 +377,7 @@ def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
                               [(tab2d, r) for r in rows]),
         "take_axis1": time_ms(lambda t, ln: torch.take_along_dim(t, ln, 1),
                               [(row0, ln) for ln in lanes]),
-        "take_axis0_axis1": time_ms(
-            lambda t, r, ln: torch.take_along_dim(
-                torch.take_along_dim(t, r, 0), ln, 1),
-            [(tab2d, r, ln) for r, ln in zip(rows, lanes)]),
+        "take_axis0_axis1": v4, "take_axis0_axis1_l2": v4,
     }
 
 
@@ -361,13 +396,14 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     torch_ms = _torch_sections(inp, emit)
 
     errs = check(inp)
-    emit(f"C1-C4, V1-V4 and the previous C3, C4 bit-equal to their plain "
-         f"versions at n={n} E={e} M={inp['m']}")
+    emit(f"C1-C4, V1-V4 and the previous C2, C3, C4, V4 bit-equal to their "
+         f"plain versions at n={n} E={e} M={inp['m']}")
     before = dict(A.launch_counts)
     yard = _yardsticks(inp, torch_ms)
     bound = bounds_ms(inp)
     rows = {}
-    for kname, (kern, plain, args) in _calls(inp).items():
+    calls = _calls(inp)
+    for kname, (kern, plain, args) in calls.items():
         ms = time_ms(kern, args)
         elems = e if "scatter" in kname else args[0][-1].numel()
         rows[kname] = {
@@ -385,16 +421,111 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     for kname in ("scatter_min", "scatter_min_atomic"):
         rows[kname]["reds"] = e if kname == "scatter_min_atomic" \
             else merged_reds(inp["idx"][0])
+    # the cluster tables' default plans, and on the card their staging share
+    for kname in ("take_two_level", "take_axis0_axis1"):
+        rows[kname]["plan"] = A.table_plan(inp["nt"])._asdict()
+        if on_card:
+            rows[kname].update(table_spans(calls[kname][0],
+                                           calls[kname][2][0]))
+            emit(f"   {kname} default plan {rows[kname]['plan']}: stage "
+                 f"{rows[kname]['stage_cycles']} lookup "
+                 f"{rows[kname]['lookup_cycles']} cycles, "
+                 f"{rows[kname]['clusters']} clusters")
     res = {"device": name, "timer": "cuda events" if on_card
            else "host clock", "n": n, "nt": inp["nt"], "e": e,
            "m": inp["m"], "reps": reps, "torch_ms": torch_ms}
+    res["by_cluster"] = cluster_sweep(inp, emit)
+    res["read_rates"] = read_rates(
+        inp, {k: rows[k]["ms"] for k in RATED}, emit)
     if on_card:
         res["take_scalar_cycles"] = _cycles_section(inp, emit)
+        khz = res["take_scalar_cycles"]["sm_clock_khz"]
+        for kname in ("take_two_level", "take_axis0_axis1"):
+            # every read of the launch over cluster 0's lookup span
+            rows[kname]["lookup_reads_per_s"] = \
+                e / (rows[kname]["lookup_cycles"] / (1e3 * khz))
     for kname, row in rows.items():
         row["launches"] = A.launch_counts[kname] - before[kname]
     res["kernels"] = {k: rows[k] for k in A.KERNELS}
     res["previous"] = {k: rows[k] for k in A.PREVIOUS}
     return res
+
+
+SWEEP = (2, 4, 8)  # the cluster sizes `cluster_sweep` tries
+
+
+def table_spans(kern: Callable, args: tuple, reps: int = 5, **kw) -> dict:
+    """Cluster 0's staging and lookup spans of C2 or V4 in SM cycles (the
+    median of `reps` launches), and the clusters launched, on the card."""
+    cyc = torch.zeros(3, dtype=torch.int64, device=args[0].device)
+    spans = []
+    for _ in range(reps):
+        kern(*args, cycles=cyc, **kw)
+        spans.append(cyc.tolist())
+    stage, lookup, clusters = (sorted(c)[len(c) // 2] for c in zip(*spans))
+    return {"stage_cycles": stage, "lookup_cycles": lookup,
+            "stage_share": stage / (stage + lookup), "clusters": clusters}
+
+
+def cluster_sweep(inp: dict, emit) -> dict:
+    """C2 and V4 at each of `SWEEP`'s cluster sizes whose shared memory
+    holds the table: each held bit-equal to its plain version, then timed;
+    on the card also its spans, clusters launched and bytes staged (each
+    cluster stages the whole table)."""
+    nt = inp["nt"]
+    on_card = inp["table"].device.type == "cuda"
+    calls = _calls(inp)
+    out = {}
+    for kname in ("take_two_level", "take_axis0_axis1"):
+        kern, plain, args = calls[kname]
+        rows = {}
+        for k in (k for k in SWEEP if A.table_fits(nt, k)):
+            def fn(*a, _k=k):
+                return kern(*a, blocks=_k)
+            _require(torch.equal(fn(*args[0]), plain(*args[0])),
+                     f"{kname}: differs from its plain version at a cluster "
+                     f"of {k}, n={inp['n']} E={inp['e']} M={inp['m']}")
+            row = {"ms": time_ms(fn, args), "smem": A.table_plan(nt, k).smem}
+            if on_card:
+                row.update(table_spans(kern, args[0], blocks=k))
+                row["staged_bytes"] = row["clusters"] * 4 * nt
+            rows[str(k)] = row
+            emit(f"   {kname} cluster of {k}: {json.dumps(row)}")
+        out[kname] = rows
+    return out
+
+
+# the lookups that make one random table read an index
+RATED = ("take", "take_two_level", "take_two_level_chunks",
+         "take_axis0_axis1", "take_axis0_axis1_l2")
+
+
+def read_rates(inp: dict, ms: Dict[str, float], emit) -> dict:
+    """Each lookup of `ms` (name -> its ms on E indices; `RATED`) timed on
+    twice the indices, each set followed by the next (the last by the
+    first), held bit-equal first. With its time on E indices this gives
+    the rate of its reads apart from what a launch costs whatever its size
+    (launch, staging, tail): E / (t(2E) - t(E)) reads a second, and
+    2 t(E) - t(2E) ms fixed."""
+    calls = _calls(inp)
+    out = {}
+    for kname in ms:
+        kern, plain, args = calls[kname]
+        twice = [(a[0], torch.cat([a[1], b[1]]))
+                 for a, b in zip(args, args[1:] + args[:1])]
+        _require(torch.equal(kern(*twice[0]), plain(*twice[0])),
+                 f"{kname}: differs from its plain version on twice the "
+                 f"indices")
+        reads = args[0][1].numel()
+        t2 = time_ms(kern, twice)
+        added = t2 - ms[kname]
+        out[kname] = {"ms": ms[kname], "ms_twice": t2,
+                      "fixed_ms": ms[kname] - added,
+                      "reads_per_s": reads / (1e-3 * added)
+                      if added > 0 else None}
+        emit(f"   {kname} on {reads} and {2 * reads} indices: "
+             f"{json.dumps(out[kname])}")
+    return out
 
 
 def _cycles_section(inp: dict, emit) -> dict:

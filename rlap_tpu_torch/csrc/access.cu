@@ -2,7 +2,8 @@
 //
 // They replace the eight Pallas TPU kernels of the access-probe tools:
 //   take_kernel             <- C1 k_take   tools/probe_access.py:135  (call :139)
-//   take_two_level_kernel   <- C2 k_tala   tools/probe_access.py:170  (call :180)
+//   take_two_level_cluster_kernel
+//                           <- C2 k_tala   tools/probe_access.py:170  (call :180)
 //   take_scalar_cluster_kernel
 //                           <- C3 k_scalar tools/probe_access.py:208  (call :215)
 //   fill_trigger_kernel + scatter_min_merged_kernel
@@ -10,10 +11,13 @@
 //   take2d_kernel           <- V1 k_v1     tools/probe_access2.py:85  (call :53)
 //   take_axis0_kernel       <- V2 k_v2     tools/probe_access2.py:97  (call :102)
 //   take_axis1_kernel       <- V3 k_v3     tools/probe_access2.py:136 (call :143)
-//   take_axis0_axis1_kernel <- V4 k_v4     tools/probe_access2.py:175 (call :194)
-// and keep the first designs of C3 and C4 as named previous variants, so
-// that one run can compare them: take_scalar_kernel (one thread against
-// L2) and fill_kernel + scatter_min_kernel (one atomicMin an update).
+//   take_axis0_axis1_shuffle_kernel
+//                           <- V4 k_v4     tools/probe_access2.py:175 (call :194)
+// and keep the first designs of C2, C3, C4 and V4 as named previous
+// variants, so that one run can compare them: take_two_level_kernel (the
+// table in per-block chunks), take_scalar_kernel (one thread against L2),
+// fill_kernel + scatter_min_kernel (one atomicMin an update) and
+// take_axis0_axis1_kernel (table reads from L2).
 //
 // The probed pattern is the vertex-table access of the rLap round: a
 // lookup in an n-entry table by ~2 |edges| indices, and a scatter-min into
@@ -28,11 +32,12 @@
 // memory, less than the 400 KB table, and blocks run in no order. A
 // thread-block cluster of k blocks on neighbouring SMs shares its shared
 // memory (distributed shared memory, up to 8 x 227 KB in a portable
-// cluster), which holds such a table on-chip: C3 stages it there. The
-// parallel lookups keep the table in device memory, served by the 50 MB
-// L2 (take, take2d, take_axis0), or cut it into chunks that one block's
-// shared memory holds (take_two_level); only the small per-row tables of
-// take_axis1 and take_axis0_axis1 are staged whole. Ragged sizes are
+// cluster), which holds such a table on-chip. C3 stages it there for its
+// one-thread walk; C2 and V4 launch persistent clusters, each of which
+// stages the whole table in equal slices across its blocks and serves its
+// share of the indices from it (the cluster-resident table below). C1, V1
+// and V2 keep the table in device memory, served by the 50 MB L2; V3's
+// one 128-entry row is staged whole in each block. Ragged sizes are
 // masked in the kernels; the TPU calls need E to be a multiple of 8192.
 //
 // Indices must lie in [0, table size); they are not checked on the card.
@@ -43,6 +48,9 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -78,7 +86,8 @@ take_kernel(const int* __restrict__ table, const int* __restrict__ idx,
     out[i] = __ldg(table + idx[i]);
 }
 
-// C2. The same lookup in two levels. blockIdx.y names a chunk of the table
+// C2, previous variant (take_two_level_chunks). The same lookup in two
+// levels. blockIdx.y names a chunk of the table
 // that fits shared memory; the block stages it with coalesced loads, then
 // walks its range of indices (blockIdx.x) and serves those that fall in
 // the chunk. An index falls in exactly one chunk, so every output is
@@ -139,7 +148,7 @@ __global__ void take_scalar_kernel(const int* __restrict__ table,
 // cycles and the number of reads of another block's slice.
 constexpr int SCALAR_THREADS = 32;
 constexpr int SCALAR_UNROLL = 32;
-constexpr int SCALAR_BARRIER_BYTES = 16;
+constexpr int BARRIER_BYTES = 16;  // the mbarrier's slot at a stage's head
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -151,6 +160,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one thread: set up the block's mbarrier to complete when `bytes` have
+// arrived by bulk copies; the cluster may see it from here on
+__device__ __forceinline__ void mbarrier_expect(uint64_t* bar,
+                                                uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
       : "memory");
 }
 
@@ -166,15 +189,8 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t phase) {
       : "memory");
 }
 
-// entry j of the table, from the shared memory of the block that holds it
-__device__ __forceinline__ int cluster_entry(uint32_t tab, unsigned j,
-                                             unsigned head, unsigned slice,
-                                             unsigned long long magic,
-                                             unsigned& remote) {
-  const unsigned x = j - head;  // wraps when j < head; then unused
-  const unsigned q = static_cast<unsigned>((x * magic) >> 40);  // x / slice
-  const bool far = j >= head;
-  remote += far;
+// the word at shared address `addr` of block `rank` of the cluster
+__device__ __forceinline__ int dsmem_load(uint32_t addr, unsigned rank) {
   int v;
   asm volatile(
       "{\n"
@@ -183,8 +199,21 @@ __device__ __forceinline__ int cluster_entry(uint32_t tab, unsigned j,
       "ld.shared::cluster.u32 %0, [a];\n"
       "}\n"
       : "=r"(v)
-      : "r"(tab + 4 * (far ? x - q * slice : j)), "r"(far ? q + 1 : 0u));
+      : "r"(addr), "r"(rank));
   return v;
+}
+
+// entry j of the table, from the shared memory of the block that holds it
+// (C3's layout: block 0 holds [0, head), then slices of `slice`)
+__device__ __forceinline__ int cluster_entry(uint32_t tab, unsigned j,
+                                             unsigned head, unsigned slice,
+                                             unsigned long long magic,
+                                             unsigned& remote) {
+  const unsigned x = j - head;  // wraps when j < head; then unused
+  const unsigned q = static_cast<unsigned>((x * magic) >> 40);  // x / slice
+  const bool far = j >= head;
+  remote += far;
+  return dsmem_load(tab + 4 * (far ? x - q * slice : j), far ? q + 1 : 0u);
 }
 
 __global__ void __launch_bounds__(SCALAR_THREADS)
@@ -197,22 +226,14 @@ take_scalar_cluster_kernel(const int* __restrict__ table,
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  int* tab = reinterpret_cast<int*>(smem + SCALAR_BARRIER_BYTES);
+  int* tab = reinterpret_cast<int*>(smem + BARRIER_BYTES);
   const int start = rank == 0 ? 0 : head + (int)(rank - 1) * slice;
   const int most = rank == 0 ? head : slice;
   const int len = n - start < 0 ? 0 : (n - start > most ? most : n - start);
   int* ix = tab + ((head + 3) & ~3);  // block 0 only
   const int len4 = len & ~3, e4 = e & ~3;
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                     smem_u32(bar))
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            smem_u32(bar)),
-        "r"(4 * (len4 + (rank == 0 ? e4 : 0)))
-        : "memory");
+    mbarrier_expect(bar, 4 * (len4 + (rank == 0 ? e4 : 0)));
     if (len4 > 0) bulk_copy(tab, table + start, 4 * len4, bar);
     if (rank == 0 && e4 > 0) bulk_copy(ix, idx, 4 * e4, bar);
   }
@@ -431,10 +452,11 @@ take_axis1_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
   }
 }
 
-// V4. V2 then V3 on its result: byrow[i, k] = tab[idx[i, k] / 128, k], then
-// out[i, j] = byrow[i, idx[i, j] % 128]. One warp per index row: it stages
-// its 128 entries of byrow in shared memory (four a lane), syncs the warp,
-// and selects.
+// V4, previous variant (take_axis0_axis1_l2). V2 then V3 on its result:
+// byrow[i, k] = tab[idx[i, k] / 128, k], then out[i, j] = byrow[i,
+// idx[i, j] % 128]. One warp per index row: it reads its 128 entries of
+// byrow from L2 (four a lane), stages them in shared memory, syncs the
+// warp, and selects.
 __global__ void __launch_bounds__(THREADS)
 take_axis0_axis1_kernel(const int* __restrict__ tab,
                         const int4* __restrict__ idx, int4* __restrict__ out,
@@ -457,6 +479,283 @@ take_axis0_axis1_kernel(const int* __restrict__ tab,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The cluster-resident table (C2 and V4). A persistent grid of clusters of
+// k blocks (k <= 8, from the wrapper's table_plan), as many as the card
+// holds at once. Each block holds an equal slice of `slice` entries (a
+// multiple of 4): entry j lies in block j / slice of every cluster, at
+// offset j % slice, so that each cluster holds the whole table and serves
+// its share of the indices from it. Layout of a block's dynamic shared
+// memory: the mbarrier (16 bytes), then its slice. Each block stages its
+// slice by
+// one bulk asynchronous copy (rows of 128 entries make every slice
+// whole 16-byte units), which completes on its mbarrier; while it is in
+// flight, each thread loads its first indices. Then thread 0 waits on the
+// mbarrier and the cluster synchronises, after which every slice is
+// visible to the whole cluster. A read maps the owner with mapa and loads by
+// ld.shared::cluster, the block's own entries too (C3 found that ptxas
+// makes every such read a generic load through the shared window, and
+// that a separate path for the own slice fetches the window's base per
+// read). The owner is a multiply-shift, j / slice == (j * magic) >> 40 for
+// j < 2^19. A last cluster barrier keeps every slice alive until the
+// cluster's reads are done. `cycles` (optional) receives, from block 0 of
+// cluster 0, the staging span (launch to the first cluster barrier) and
+// the lookup span (to the last) in clock64 cycles, and the number of
+// clusters launched.
+//
+// What bounds them: each cluster stages the whole table (clusters x 4 nt
+// bytes from L2), and each index costs one random 4-byte read of
+// distributed shared memory, whose rate these probes measure. The bytes
+// bound (indices in, outputs out, the table once) is 3.9 us at the default
+// shape.
+constexpr int CLUSTER_THREADS = 512;
+constexpr int CLUSTER_WARPS = CLUSTER_THREADS / 32;
+constexpr int TAKE_UNROLL = 2;  // C2: index quads a thread has in flight
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// entry j of a table cut into equal slices, one a block of the cluster
+__device__ __forceinline__ int slice_entry(uint32_t tab, unsigned j,
+                                           unsigned slice,
+                                           unsigned long long magic) {
+  const unsigned q = static_cast<unsigned>((j * magic) >> 40);  // j / slice
+  return dsmem_load(tab + 4 * (j - q * slice), q);
+}
+
+// thread 0 starts the bulk copy of this block's slice; returns the slice
+__device__ __forceinline__ int* stage_slice(unsigned char* smem,
+                                            const int* __restrict__ table,
+                                            int nt, int slice,
+                                            unsigned rank) {
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int* tab = reinterpret_cast<int*>(smem + BARRIER_BYTES);
+  if (threadIdx.x == 0) {
+    const int start = static_cast<int>(rank) * slice;
+    const int len = nt - start < 0 ? 0 : (nt - start < slice ? nt - start
+                                                             : slice);
+    mbarrier_expect(bar, 4 * len);
+    if (len > 0) bulk_copy(tab, table + start, 4 * len, bar);
+  }
+  return tab;
+}
+
+// every slice of the cluster staged and visible to the whole cluster
+__device__ __forceinline__ void stage_wait(unsigned char* smem,
+                                           cg::cluster_group& cluster) {
+  if (threadIdx.x == 0) mbarrier_wait(reinterpret_cast<uint64_t*>(smem), 0);
+  cluster.sync();
+}
+
+__device__ __forceinline__ void record_spans(long long* cycles, long long t0,
+                                             long long t1,
+                                             cg::cluster_group& cluster) {
+  if (cycles != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = clock64() - t1;
+    cycles[2] = gridDim.x / cluster.num_blocks();
+  }
+}
+
+// C2. out[i] = tab2d[idx[i] / 128, idx[i] % 128], the flat entry idx[i],
+// from the cluster-resident table: the TPU probe's two levels, row then
+// lane, become owner block then offset in its shared memory. The grid
+// walks the index quads with a grid stride (16-byte loads of indices and
+// stores of outputs; out lies at idx's offset from a 16-byte boundary),
+// TAKE_UNROLL quads a thread at a time, the next ones loaded before the
+// current ones' reads. The `head` indices before the first 16-byte
+// boundary and the < 4 after the last quad go one at a time. Every index
+// is read once and every output written once.
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+take_two_level_cluster_kernel(const int* __restrict__ table,
+                              const int* __restrict__ idx,
+                              int* __restrict__ out,
+                              long long* __restrict__ cycles, int nt,
+                              int slice, unsigned long long magic, int e,
+                              int head, int64_t quads) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t0 = clock64();
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t tab =
+      smem_u32(stage_slice(smem, table, nt, slice, cluster.block_rank()));
+  const int4* idx4 = reinterpret_cast<const int4*>(idx + head);
+  int4* out4 = reinterpret_cast<int4*>(out + head);
+  const int64_t stride = (int64_t)gridDim.x * CLUSTER_THREADS;
+  int64_t q = (int64_t)blockIdx.x * CLUSTER_THREADS + threadIdx.x;
+  int4 j[TAKE_UNROLL];
+#pragma unroll
+  for (int u = 0; u < TAKE_UNROLL; ++u)
+    j[u] = q + u * stride < quads ? __ldg(idx4 + q + u * stride)
+                                  : make_int4(0, 0, 0, 0);
+  stage_wait(smem, cluster);
+  const long long t1 = clock64();
+  for (; q < quads; q += TAKE_UNROLL * stride) {
+    int4 next[TAKE_UNROLL], v[TAKE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < TAKE_UNROLL; ++u) {
+      const int64_t r = q + (u + TAKE_UNROLL) * stride;
+      next[u] = r < quads ? __ldg(idx4 + r) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < TAKE_UNROLL; ++u)
+      if (q + u * stride < quads)
+        v[u] = make_int4(slice_entry(tab, j[u].x, slice, magic),
+                         slice_entry(tab, j[u].y, slice, magic),
+                         slice_entry(tab, j[u].z, slice, magic),
+                         slice_entry(tab, j[u].w, slice, magic));
+#pragma unroll
+    for (int u = 0; u < TAKE_UNROLL; ++u) {
+      if (q + u * stride < quads) out4[q + u * stride] = v[u];
+      j[u] = next[u];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 8) {  // the head and the tail
+    const int t = threadIdx.x;
+    const int64_t tail = e - head - 4 * quads;
+    const int64_t i = t < 4 ? (t < head ? t : -1)
+                            : (t - 4 < tail ? head + 4 * quads + (t - 4) : -1);
+    if (i >= 0) out[i] = slice_entry(tab, idx[i], slice, magic);
+  }
+  cluster.sync();  // no block leaves while its cluster may still read it
+  record_spans(cycles, t0, t1, cluster);
+}
+
+// V4. byrow[i, k] = tab2d[idx[i, k] / 128, k], then out[i, j] = byrow[i,
+// idx[i, j] % 128], with every table read from the cluster-resident table,
+// in the form out[i, j] = tab2d[idx[i, L] / 128, L] with L = idx[i, j] %
+// 128. One warp a 128-index row (a quad a lane, 16-byte loads and stores),
+// the grid's warps striding over rows, the next row's quad loaded before
+// the current row's reads. idx[i, L] lies in lane L / 4, slot L % 4: 4
+// shuffles an output fetch it, then each output is one table read, 128 a
+// row, with no shared-memory stage of byrow. (A stage of byrow through a
+// per-warp 512-byte row, the tool's two steps, timed 9% slower on the
+// card.)
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+take_axis0_axis1_shuffle_kernel(const int* __restrict__ table,
+                                const int4* __restrict__ idx,
+                                int4* __restrict__ out,
+                                long long* __restrict__ cycles, int nt,
+                                int slice, unsigned long long magic, int m) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t0 = clock64();
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t tab =
+      smem_u32(stage_slice(smem, table, nt, slice, cluster.block_rank()));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = gridDim.x * CLUSTER_WARPS;
+  int i = blockIdx.x * CLUSTER_WARPS + warp;
+  int4 j = i < m ? __ldg(idx + (int64_t)i * QUADS_PER_ROW + lane)
+                 : make_int4(0, 0, 0, 0);
+  stage_wait(smem, cluster);
+  const long long t1 = clock64();
+  for (; i < m; i += warps) {  // warp-uniform
+    const int ni = i + warps;
+    const int4 jn = ni < m ? __ldg(idx + (int64_t)ni * QUADS_PER_ROW + lane)
+                           : make_int4(0, 0, 0, 0);
+    const int k[4] = {j.x, j.y, j.z, j.w};
+    unsigned at[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int lc = k[c] & (LANES - 1), src = lc >> 2, slot = lc & 3;
+      const int a = __shfl_sync(FULL_MASK, j.x, src);
+      const int b = __shfl_sync(FULL_MASK, j.y, src);
+      const int d = __shfl_sync(FULL_MASK, j.z, src);
+      const int f = __shfl_sync(FULL_MASK, j.w, src);
+      const int r = slot == 0 ? a : (slot == 1 ? b : (slot == 2 ? d : f));
+      at[c] = static_cast<unsigned>(r >> 7) * LANES + lc;
+    }
+    int v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = slice_entry(tab, at[c], slice, magic);
+    out[(int64_t)i * QUADS_PER_ROW + lane] = make_int4(v[0], v[1], v[2], v[3]);
+    j = jn;
+  }
+  cluster.sync();  // no block leaves while its cluster may still read it
+  record_spans(cycles, t0, t1, cluster);
+}
+
+// x / d == (x * magic) >> 40 for x * d < 2^40 (x < 2^19 for every table
+// that a cluster holds)
+inline unsigned long long div_magic(int d) {
+  return d > 0 ? ((1ull << 40) + d - 1) / d : 0;
+}
+
+// How many clusters of `cfg` the card holds at once, for each kernel,
+// device, cluster size and shared memory: cudaOccupancyMaxActiveClusters
+// once, after raising the kernel's shared-memory limit to the device's
+// opt-in maximum, then from the cache.
+struct ClusterFit {
+  const void* kernel;
+  int device, blocks, smem, clusters;
+};
+
+int clusters_held(const void* kernel, const cudaLaunchConfig_t& cfg,
+                  int blocks, int* clusters) {
+  static std::mutex mu;
+  static std::vector<ClusterFit> fits;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = static_cast<int>(cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const ClusterFit& f : fits)
+    if (f.kernel == kernel && f.device == device && f.blocks == blocks &&
+        f.smem == smem) {
+      *clusters = f.clusters;
+      return 0;
+    }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fits.push_back({kernel, device, blocks, smem, *clusters});
+  return 0;
+}
+
+// Launch `kernel` as persistent clusters of `blocks` blocks of
+// CLUSTER_THREADS threads with `smem` bytes of dynamic shared memory each:
+// as many clusters as the card holds at once (`clusters_held`), at most
+// `most`.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int blocks, int smem,
+                    int64_t most, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const int err = clusters_held(reinterpret_cast<const void*>(kernel), cfg,
+                                blocks, &clusters);
+  if (err != 0) return err;
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (clusters > most) clusters = static_cast<int>(most < 1 ? 1 : most);
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * blocks));
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return last_error();
+}
+
+// the plan's slices must cover the table and fit the shared memory
+inline bool plan_holds(int nt, int blocks, int slice, int smem) {
+  return blocks >= 1 && blocks <= 8 && slice % 4 == 0 &&
+         (int64_t)blocks * slice >= nt &&
+         BARRIER_BYTES + 4 * (int64_t)slice <= smem;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each launches on `stream`, does not
@@ -474,7 +773,23 @@ int access_take(const void* table, const void* idx, void* out, int e,
 }
 
 int access_take_two_level(const void* table, const void* idx, void* out,
-                          int nt, int e, void* stream) {
+                          void* cycles, int nt, int e, int head, int quads,
+                          int blocks, int slice, int smem, void* stream) {
+  if (e <= 0) return 0;
+  if (!plan_holds(nt, blocks, slice, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_cluster = (int64_t)blocks * CLUSTER_THREADS * TAKE_UNROLL;
+  return launch_clusters(
+      take_two_level_cluster_kernel, blocks, smem,
+      (quads + per_cluster - 1) / per_cluster,
+      static_cast<cudaStream_t>(stream), static_cast<const int*>(table),
+      static_cast<const int*>(idx), static_cast<int*>(out),
+      static_cast<long long*>(cycles), nt, slice, div_magic(slice), e, head,
+      (int64_t)quads);
+}
+
+int access_take_two_level_chunks(const void* table, const void* idx,
+                                 void* out, int nt, int e, void* stream) {
   if (e <= 0 || nt <= 0) return 0;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -521,15 +836,12 @@ int access_take_scalar(const void* table, const void* idx, void* out,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // x / slice == (x * magic) >> 40 for x * slice < 2^40 (x < 2^19 here)
-  const unsigned long long magic =
-      slice > 0 ? ((1ull << 40) + slice - 1) / slice : 0;
   err = cudaLaunchKernelEx(&cfg, take_scalar_cluster_kernel,
                            static_cast<const int*>(table),
                            static_cast<const int*>(idx),
                            static_cast<int*>(out),
                            static_cast<long long*>(cycles), n, e, head, slice,
-                           magic);
+                           div_magic(slice));
   if (err != cudaSuccess) return static_cast<int>(err);
   return last_error();
 }
@@ -621,7 +933,21 @@ int access_take_axis1(const void* tab, const void* idx, void* out, int m,
 }
 
 int access_take_axis0_axis1(const void* tab, const void* idx, void* out,
-                            int m, void* stream) {
+                            void* cycles, int nt, int m, int blocks,
+                            int slice, int smem, void* stream) {
+  if (m <= 0) return 0;
+  if (!plan_holds(nt, blocks, slice, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_cluster = blocks * CLUSTER_WARPS;
+  return launch_clusters(
+      take_axis0_axis1_shuffle_kernel, blocks, smem, (m + per_cluster - 1) / per_cluster,
+      static_cast<cudaStream_t>(stream), static_cast<const int*>(tab),
+      static_cast<const int4*>(idx), static_cast<int4*>(out),
+      static_cast<long long*>(cycles), nt, slice, div_magic(slice), m);
+}
+
+int access_take_axis0_axis1_l2(const void* tab, const void* idx, void* out,
+                               int m, void* stream) {
   if (m <= 0) return 0;
   const int blocks = (m + WARPS - 1) / WARPS;
   take_axis0_axis1_kernel<<<blocks > MAX_BLOCKS ? MAX_BLOCKS : blocks,

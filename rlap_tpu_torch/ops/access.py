@@ -10,13 +10,18 @@ inside `main()` of `tools/probe_access.py` (C1 `pallas_take` :139, C2
 is on this card. `rlap_tpu_torch/bench/probe_access.py` is the entry point
 that times them beside torch's own gathers and scatters.
 
-C3 (`take_scalar`) and C4 (`scatter_min`) were redesigned for Hopper: C3
-stages its table in the shared memory of a thread-block cluster and walks
-it with one thread; C4 merges equal indices in registers and across the
-warp before its atomics and overlaps its fill. Their first designs stay
-as previous variants, `take_scalar_l2` (one thread against L2) and
-`scatter_min_atomic` (one atomicMin an update after a separate fill), so
-that one run compares both.
+Four probes were redesigned for Hopper. C3 (`take_scalar`) stages its
+table in the shared memory of a thread-block cluster and walks it with one
+thread; C4 (`scatter_min`) merges equal indices in registers and across
+the warp before its atomics and overlaps its fill. C2 (`take_two_level`)
+and V4 (`take_axis0_axis1`) launch persistent clusters, each of which
+holds the whole table in equal slices of its blocks' shared memory
+(`table_plan`) and serves its share of the indices from there. Their
+first designs stay as previous variants, so that one run compares both:
+`take_two_level_chunks` (the table staged in per-block chunks),
+`take_scalar_l2` (one thread against L2), `scatter_min_atomic` (one
+atomicMin an update after a separate fill) and `take_axis0_axis1_l2`
+(table reads from L2).
 
 All tensors are int32 and contiguous. A table is `[n]`, or `[R, 128]` where
 the probe is two-level; indices are `[E]`, or `[M, 128]` tiles for the 2-D
@@ -28,7 +33,12 @@ plain versions.
 
 `take_scalar` takes at most `TILE` indices and a table that `CLUSTER_MAX`
 blocks' shared memory holds (`scalar_plan`: 456,672 entries beside 8192
-indices), both 16-byte aligned for the bulk copies. `scatter_min` takes
+indices), both 16-byte aligned for the bulk copies. `take_two_level` and
+`take_axis0_axis1` take a table that `CLUSTER_MAX` blocks hold
+(`table_plan`: 464,768 entries), 16-byte aligned, and raise `ValueError`
+beyond it; their previous designs take
+any size. `take_two_level` takes indices at any offset (its output shares
+it), `take_axis0_axis1` 16-byte aligned tiles. `scatter_min` takes
 indices and values that lie at the same offset from a 16-byte boundary
 (views at any offset). The wrappers check this for CPU tensors too, so
 that both devices take the same inputs.
@@ -54,10 +64,14 @@ TILE = 8192  # the most indices of one scalar walk, the tool's tile
 SMEM_BLOCK = 232_448
 CLUSTER_MAX = 8
 BARRIER_BYTES = 16  # the mbarrier's slot at the head of a block's stage
+# the cluster size of C2 and V4 where the table allows it: the fastest of
+# k = 2, 4, 8 for both at n=100000 on the card (PERF.md section 6)
+CLUSTER_DEFAULT = 2
 KERNELS = ("take", "take_two_level", "take_scalar", "scatter_min", "take2d",
            "take_axis0", "take_axis1", "take_axis0_axis1")
-# the first designs of C3 and C4, kept to compare with
-PREVIOUS = ("take_scalar_l2", "scatter_min_atomic")
+# the first designs of C2, C3, C4 and V4, kept to compare with
+PREVIOUS = ("take_two_level_chunks", "take_scalar_l2", "scatter_min_atomic",
+            "take_axis0_axis1_l2")
 NAMES = KERNELS + PREVIOUS
 
 launch_counts = {name: 0 for name in NAMES}
@@ -109,6 +123,48 @@ def scalar_plan(n: int, e: int) -> ScalarPlan:
                       BARRIER_BYTES + max(4 * cap0 + idx_bytes, 4 * slice_))
 
 
+class TablePlan(NamedTuple):
+    """How C2 and V4 lay a table of nt entries over a cluster of `blocks`
+    blocks: block r holds entries [r slice, (r + 1) slice), the last what
+    is left; `smem` is each block's dynamic shared memory in bytes."""
+    blocks: int
+    slice: int
+    smem: int
+
+
+def _table_smem(nt: int, blocks: int) -> Tuple[int, int]:
+    slice_ = _round_up(-(-nt // blocks), 4)
+    return slice_, BARRIER_BYTES + 4 * slice_
+
+
+def table_fits(nt: int, blocks: int) -> bool:
+    """Whether a cluster of `blocks` blocks holds nt entries."""
+    return (1 <= blocks <= CLUSTER_MAX
+            and _table_smem(nt, blocks)[1] <= SMEM_BLOCK)
+
+
+def table_plan(nt: int, blocks: Optional[int] = None) -> TablePlan:
+    """The cluster that holds an nt-entry table in equal slices (multiples
+    of 4 entries): `blocks` if given, else `CLUSTER_DEFAULT`, or the
+    fewest blocks that hold the table where that many do not. Raises
+    ValueError where the given `blocks`, or `CLUSTER_MAX` blocks, cannot
+    hold it."""
+    if nt <= 0:
+        raise ValueError(f"table_plan: needs a table, got nt={nt}")
+    if blocks is None:
+        blocks = next((k for k in range(CLUSTER_DEFAULT, CLUSTER_MAX + 1)
+                       if table_fits(nt, k)), CLUSTER_MAX)
+    if not table_fits(nt, blocks):
+        cap = (SMEM_BLOCK - BARRIER_BYTES) // 16 * 4 * CLUSTER_MAX
+        raise ValueError(
+            f"a table of {nt} entries does not fit a cluster of {blocks} "
+            f"blocks of {SMEM_BLOCK} bytes of shared memory each; a cluster "
+            f"has 1 to {CLUSTER_MAX} blocks, which hold at most {cap} "
+            f"entries. The previous designs (take_two_level_chunks, "
+            f"take_axis0_axis1_l2) take any size")
+    return TablePlan(blocks, *_table_smem(nt, blocks))
+
+
 def vector_split(ptr: int, e: int) -> Tuple[int, int]:
     """(head, quads): the updates before the first 16-byte boundary of an
     int32 array at address `ptr`, and the whole quads of 4 after them, of
@@ -133,7 +189,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"access_{name}")
         fn.argtypes = [ptr, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
-    lib.access_take_two_level.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.access_take_two_level.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                          i32, i32, i32, i32, ptr]
+    lib.access_take_two_level_chunks.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.access_take_axis0_axis1.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                            i32, i32, i32, ptr]
     lib.access_take_scalar.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                        i32, i32, i32, ptr]
     lib.access_scatter_min.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
@@ -186,6 +246,30 @@ def _aligned16(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: {tuple(t.shape)} tensor at address "
                              f"{t.data_ptr():#x} is not 16-byte aligned, as "
                              f"the bulk copies need")
+
+
+def _spans(name: str, cycles: Optional[torch.Tensor], cpu: bool,
+           like: torch.Tensor) -> Optional[int]:
+    """The device pointer of an optional int64 `cycles` buffer of 3, which
+    the cluster kernels fill on the card only; None without one."""
+    if cycles is None:
+        return None
+    if cpu:
+        raise ValueError(f"{name}: cycles are counted on the card only")
+    if (cycles.dtype != torch.int64 or cycles.numel() < 3
+            or cycles.device != like.device or not cycles.is_contiguous()):
+        raise ValueError(f"{name}: cycles must be a contiguous int64 "
+                         f"tensor of 3 on {like.device}")
+    return cycles.data_ptr()
+
+
+def _empty_at_offset(like: torch.Tensor) -> torch.Tensor:
+    """An empty int32 tensor of `like`'s size that lies at `like`'s offset
+    from a 16-byte boundary, so that both take the same 16-byte quads."""
+    store = torch.empty(like.numel() + 3, dtype=torch.int32,
+                        device=like.device)
+    off = (like.data_ptr() - store.data_ptr()) % 16 // 4
+    return store[off:off + like.numel()]
 
 
 def _rows_lanes(idx: torch.Tensor):
@@ -247,14 +331,39 @@ def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def take_two_level(tab2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """C2: the lookup with the table staged through shared memory in
-    chunks."""
+def take_two_level(tab2d: torch.Tensor, idx: torch.Tensor,
+                   blocks: Optional[int] = None,
+                   cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C2: the lookup from a table held whole in the shared memory of each
+    of a grid of clusters (`table_plan(nt, blocks)`); indices at any
+    offset, any E. On the card, an int64 `cycles` of 3 entries receives
+    cluster 0's staging and lookup spans in SM cycles and the number of
+    clusters launched."""
     _check("take_two_level", tab2d, idx, two_level=True, tiles=False)
+    cpu = _on_cpu(tab2d, idx)
+    plan = table_plan(tab2d.numel(), blocks)
+    _aligned16("take_two_level", tab2d)
+    spans = _spans("take_two_level", cycles, cpu, tab2d)
+    if cpu:
+        return take_two_level_plain(tab2d, idx)
+    out = _empty_at_offset(idx)
+    e = idx.numel()
+    _launch("take_two_level", (tab2d, idx, out), spans, tab2d.numel(), e,
+            *vector_split(idx.data_ptr(), e), *plan)
+    return out
+
+
+def take_two_level_chunks(tab2d: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """C2's previous design: the table staged through shared memory in
+    chunks, each block reading its whole range of indices once a chunk;
+    any size."""
+    _check("take_two_level_chunks", tab2d, idx, two_level=True, tiles=False)
     if _on_cpu(tab2d, idx):
         return take_two_level_plain(tab2d, idx)
     out = torch.empty_like(idx)
-    _launch("take_two_level", (tab2d, idx, out), tab2d.numel(), idx.numel())
+    _launch("take_two_level_chunks", (tab2d, idx, out), tab2d.numel(),
+            idx.numel())
     return out
 
 
@@ -268,20 +377,11 @@ def take_scalar(table: torch.Tensor, idx: torch.Tensor,
     cpu = _on_cpu(table, idx)
     plan = scalar_plan(table.numel(), idx.numel())
     _aligned16("take_scalar", table, idx)
+    spans = _spans("take_scalar", cycles, cpu, table)
     if cpu:
-        if cycles is not None:
-            raise ValueError("take_scalar: cycles are counted on the card "
-                             "only")
         return take_plain(table, idx)
-    if cycles is not None and (cycles.dtype != torch.int64
-                               or cycles.numel() < 3
-                               or cycles.device != table.device
-                               or not cycles.is_contiguous()):
-        raise ValueError(f"take_scalar: cycles must be a contiguous int64 "
-                         f"tensor of 3 on {table.device}")
     out = torch.empty_like(idx)
-    _launch("take_scalar", (table, idx, out),
-            None if cycles is None else cycles.data_ptr(), table.numel(),
+    _launch("take_scalar", (table, idx, out), spans, table.numel(),
             idx.numel(), *plan)
     return out
 
@@ -363,7 +463,29 @@ def take_axis1(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
     return _tiles("take_axis1", take_axis1_plain, tab2d, idx2)
 
 
-def take_axis0_axis1(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
-    """V4: V2, then V3's lane select on its result."""
-    return _tiles("take_axis0_axis1", take_axis0_axis1_plain, tab2d, idx2)
+def take_axis0_axis1(tab2d: torch.Tensor, idx2: torch.Tensor,
+                     blocks: Optional[int] = None,
+                     cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """V4: V2, then V3's lane select on its result, with the table held as
+    in `take_two_level` and the lane select made by warp shuffles of the
+    indices: out[i, j] = tab2d[idx2[i, L] // 128, L], L = idx2[i, j] %
+    128. `cycles` as there."""
+    name = "take_axis0_axis1"
+    _check(name, tab2d, idx2, two_level=True, tiles=True)
+    cpu = _on_cpu(tab2d, idx2)
+    plan = table_plan(tab2d.numel(), blocks)
+    _aligned16(name, tab2d, idx2)
+    spans = _spans(name, cycles, cpu, tab2d)
+    if cpu:
+        return take_axis0_axis1_plain(tab2d, idx2)
+    out = torch.empty_like(idx2)
+    _launch(name, (tab2d, idx2, out), spans, tab2d.numel(), idx2.shape[0],
+            *plan)
+    return out
+
+
+def take_axis0_axis1_l2(tab2d: torch.Tensor,
+                        idx2: torch.Tensor) -> torch.Tensor:
+    """V4's previous design: the table reads from L2; any size."""
+    return _tiles("take_axis0_axis1_l2", take_axis0_axis1_plain, tab2d, idx2)
 

@@ -244,3 +244,106 @@ def test_scatter_min_rejects_unaligned_or_oversized_input():
     ref = jnp.full((NT,), 2 ** 30, jnp.int32).at[
         jnp.asarray(d["idx"][1:4001])].min(jnp.asarray(d["val"][2:4002]))
     _same(A.scatter_min_atomic(idx[1:4001], val[2:4002], NT), ref)
+
+
+# C2 and V4: the cluster-resident table. The largest table (a multiple of
+# 128 entries) that k blocks hold: 58,108 entries a block
+TABLE_EDGES = {1: 57_984, 2: 116_096, 3: 174_208, 4: 232_320, 5: 290_432,
+               6: 348_544, 7: 406_656, 8: 464_768}
+
+
+@pytest.mark.parametrize("blocks,edge", sorted(TABLE_EDGES.items()))
+def test_table_plan_edges(blocks, edge):
+    """k blocks hold the edge table and not one row more; where the
+    default cluster cannot, the plan takes the fewest blocks that can."""
+    plan = A.table_plan(edge, blocks)
+    assert plan.blocks == blocks and plan.smem <= A.SMEM_BLOCK
+    with pytest.raises(ValueError, match="previous designs"):
+        A.table_plan(edge + 128, blocks)
+    assert A.table_plan(edge).blocks == max(A.CLUSTER_DEFAULT, blocks)
+    if blocks < A.CLUSTER_MAX:
+        assert A.table_plan(edge + 128).blocks == \
+            max(A.CLUSTER_DEFAULT, blocks + 1)
+
+
+@pytest.mark.parametrize("nt", [128, 1024, 100_096, 150_016, 464_768])
+@pytest.mark.parametrize("blocks", [1, 2, 3, 4, 7, 8])
+def test_table_plan_slices_cover_the_table(nt, blocks):
+    """Equal slices of whole 16-byte units, each block holding some of
+    the table and the blocks all of it; the stage is the mbarrier and the
+    slice."""
+    if not A.table_fits(nt, blocks):
+        with pytest.raises(ValueError):
+            A.table_plan(nt, blocks)
+        return
+    plan = A.table_plan(nt, blocks)
+    assert plan.slice % 4 == 0
+    assert (blocks - 1) * plan.slice < nt <= blocks * plan.slice
+    assert plan.smem == A.BARRIER_BYTES + 4 * plan.slice
+
+
+def test_table_plan_raises_beyond_a_cluster():
+    with pytest.raises(ValueError, match=r"1 to 8 blocks.*464864 entries"):
+        A.table_plan(464_896)
+    for blocks in (0, 9):
+        with pytest.raises(ValueError):
+            A.table_plan(1024, blocks)
+    with pytest.raises(ValueError):
+        A.table_plan(0)
+
+
+def test_cluster_wrappers_refuse_a_table_beyond_a_cluster():
+    """On the CPU too: both devices take the same inputs. The previous
+    designs take it."""
+    tab2d = torch.zeros((464_896 // 128, 128), dtype=torch.int32)
+    idx = torch.arange(0, 464_896, 97, dtype=torch.int32)
+    idx2 = torch.arange(0, 464_896, 3632, dtype=torch.int32).view(1, 128)
+    for fn, i in ((A.take_two_level, idx), (A.take_axis0_axis1, idx2)):
+        with pytest.raises(ValueError, match="previous designs"):
+            fn(tab2d, i)
+    assert torch.equal(A.take_two_level_chunks(tab2d, idx),
+                       torch.zeros_like(idx))
+    assert torch.equal(A.take_axis0_axis1_l2(tab2d, idx2),
+                       torch.zeros_like(idx2))
+    # the largest table a cluster holds is taken
+    small = tab2d[:464_768 // 128]
+    A.take_two_level(small, idx % 464_768)
+    A.take_axis0_axis1(small, idx2 % 464_768)
+
+
+@pytest.mark.parametrize("e,m", SHAPES)
+def test_axis0_axis1_shuffle_identity_matches_jnp(e, m):
+    """V4's form on the card: out[i, j] = tab2d[idx[i, L] // 128, L] with
+    L = idx[i, j] % 128, against the tool's two `take_along_axis` calls
+    (`tools/probe_access2.py:115-120`'s expression)."""
+    d = _inputs(e, m, 10)
+    idx2, tab2d = _t(d["idx2"]), _t(d["tab2d"])
+    lanes = (idx2 % 128).long()
+    rows_at = torch.take_along_dim(idx2, lanes, 1).long() // 128
+    got = tab2d.reshape(-1)[rows_at * 128 + lanes]
+    idx = jnp.asarray(d["idx2"])
+    byrow = jnp.take_along_axis(jnp.asarray(d["tab2d"]), idx // 128, axis=0)
+    _same(got, jnp.take_along_axis(byrow, idx % 128, axis=1))
+    _same(A.take_axis0_axis1(tab2d, idx2), got)
+
+
+def test_cluster_wrappers_take_their_options_on_the_cpu():
+    """A cluster size runs the plain version on the CPU; a cycles buffer
+    and a table not 16-byte aligned are refused there as on the card."""
+    d = _inputs(4096, 32, 11)
+    tab2d, idx, idx2 = _t(d["tab2d"]), _t(d["idx"]), _t(d["idx2"])
+    ref = jnp.asarray(d["tpad"])[jnp.asarray(d["idx"])]
+    for blocks in (None, 1, 2, 8):
+        _same(A.take_two_level(tab2d, idx, blocks=blocks), ref)
+    # indices at any offset
+    _same(A.take_two_level(tab2d, idx[1:4094]), ref[1:4094])
+    j2 = jnp.asarray(d["idx2"])
+    ref2 = jnp.take_along_axis(jnp.take_along_axis(
+        jnp.asarray(d["tab2d"]), j2 // 128, axis=0), j2 % 128, axis=1)
+    for blocks in (None, 1, 8):
+        _same(A.take_axis0_axis1(tab2d, idx2, blocks=blocks), ref2)
+    with pytest.raises(ValueError, match="card"):
+        A.take_two_level(tab2d, idx, cycles=torch.zeros(3, dtype=torch.int64))
+    flat = torch.zeros(NT + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.take_two_level(flat[1:].view(-1, 128), idx)

@@ -10,10 +10,12 @@ atol 1e-6, in float32 with TF32 off; on alike rows all three kernels are
 held against float64, within 1e-4 of the largest entry (dB 2e-4 on rows
 alike to 0.003, where the rounding of its float32 coefficients reaches it
 through its column sums). The access probes are int32 and must be
-bit-equal: the eight kernels and the previous designs of C3 and C4 at the
-probes' shapes, both scatter-mins on hub-heavy streams
-(`tests/test_torch_access_cases.py`), and the cluster walk of C3 at each
-cluster size of its plan, with its cycle counts.
+bit-equal: the eight kernels and the previous designs of C2, C3, C4 and V4
+at the probes' shapes, both scatter-mins on hub-heavy streams
+(`tests/test_torch_access_cases.py`), the cluster walk of C3 at each
+cluster size of its plan, with its cycle counts, and the cluster-resident
+table of C2 and V4 at each swept cluster size, at the plan's capacity edge,
+on ragged and offset indices, with their spans.
 """
 
 import numpy as np
@@ -229,14 +231,104 @@ def test_cuda_access_kernel_matches_plain(name, n, e, m):
 
 
 @pytest.mark.cuda
-def test_cuda_two_level_take_covers_several_chunks():
-    """A table of more than one shared-memory chunk (57344 entries)."""
+@pytest.mark.parametrize("fn", ["take_two_level", "take_two_level_chunks"])
+def test_cuda_two_level_take_covers_several_chunks(fn):
+    """Both designs of C2 on a table of more than one chunk of the
+    previous design (57344 entries) and more than the default cluster's
+    slices where that is 2 blocks."""
     _needs_card()
     inp = P.make_inputs(150_001, 50_000, 1, 1, "cuda", seed=5)
     idx = inp["idx"][0]
-    assert torch.equal(A.take_two_level(inp["tab2d"], idx),
-                       A.take_two_level_plain(inp["tab2d"], idx))
+    got = getattr(A, fn)(inp["tab2d"], idx)
+    assert torch.equal(got, A.take_two_level_plain(inp["tab2d"], idx))
     torch.cuda.synchronize()
+
+
+def _cluster_case(n, e, m, seed):
+    inp = P.make_inputs(n, e, m, 1, "cuda", seed=seed)
+    return inp["tab2d"], inp["idx"][0], inp["idx2"][0]
+
+
+CLUSTER_KERNELS = ["take_two_level", "take_axis0_axis1"]
+
+
+def _cluster_run(fn, n, e, m, seed, blocks):
+    """`fn` at a cluster of `blocks` (None: the plan's) on a fresh case,
+    bit-equal to its plain version in one launch; its spans."""
+    tab2d, idx, idx2 = _cluster_case(n, e, m, seed)
+    arg = idx2 if "axis" in fn else idx
+    plain = A.take_axis0_axis1_plain if "axis" in fn \
+        else A.take_two_level_plain
+    cyc = torch.zeros(3, dtype=torch.int64, device="cuda")
+    before = A.launch_counts[fn]
+    got = getattr(A, fn)(tab2d, arg, blocks=blocks, cycles=cyc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(tab2d, arg))
+    assert A.launch_counts[fn] == before + 1
+    return cyc.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", CLUSTER_KERNELS)
+@pytest.mark.parametrize("blocks", [None, 1, 2, 4, 8])
+def test_cuda_cluster_table_matches_plain(fn, blocks):
+    """C2 and V4 at n=100000 at every cluster size that holds the table
+    (and the default plan), bit-equal, with positive staging and lookup
+    spans and a whole grid of clusters."""
+    _needs_card()
+    if blocks is not None and not A.table_fits(100_096, blocks):
+        tab2d, idx, idx2 = _cluster_case(100_000, 4096, 32, 3)
+        with pytest.raises(ValueError):
+            getattr(A, fn)(tab2d, idx2 if "axis" in fn else idx,
+                           blocks=blocks)
+        return
+    stage, lookup, clusters = _cluster_run(fn, 100_000, 1_600_000, 12_500,
+                                           3, blocks)
+    assert stage > 0 and lookup > 0 and clusters >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", CLUSTER_KERNELS)
+@pytest.mark.parametrize("blocks", [1, 2, 8])
+def test_cuda_cluster_table_small_table(fn, blocks):
+    """A table of 1000 entries (8 rows) at a cluster of 1 block, of 2,
+    and of 8, where some blocks hold no entry."""
+    _needs_card()
+    stage, lookup, clusters = _cluster_run(fn, 1000, 12_345, 97, 7, blocks)
+    assert stage > 0 and lookup > 0 and clusters >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", CLUSTER_KERNELS)
+def test_cuda_cluster_table_at_its_capacity_edge(fn):
+    """The largest table a cluster of 8 holds, bit-equal; one row more is
+    refused on the card, not run some other way."""
+    _needs_card()
+    edge = 464_768
+    assert A.table_plan(edge).blocks == 8
+    _cluster_run(fn, edge, 40_000, 300, 4, None)
+    tab2d, idx, idx2 = _cluster_case(1000, 4096, 32, 4)
+    bigger = torch.zeros((edge // 128 + 1, 128), dtype=torch.int32,
+                         device="cuda")
+    with pytest.raises(ValueError, match="previous designs"):
+        getattr(A, fn)(bigger, idx2 if "axis" in fn else idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["take_two_level", "take_two_level_chunks"])
+@pytest.mark.parametrize("skip,e", [(0, 4097), (1, 4097), (1, 50_000),
+                                    (2, 3), (3, 1), (1, 0)])
+def test_cuda_two_level_take_ragged_and_offset_indices(fn, skip, e):
+    """E not a multiple of 4, and index views 1-3 elements into their
+    storage: a head before the first 16-byte boundary and a tail."""
+    _needs_card()
+    tab2d, idx, _idx2 = _cluster_case(100_000, e + skip, 1, 6)
+    view = idx[skip:]
+    assert view.numel() == e
+    got = getattr(A, fn)(tab2d, view)
+    torch.cuda.synchronize()
+    assert got.shape == view.shape
+    assert torch.equal(got, A.take_two_level_plain(tab2d, view))
 
 
 @pytest.mark.parametrize("name", A.NAMES)
@@ -262,8 +354,8 @@ def test_access_wrappers_never_fall_back_off_the_cpu(name):
     mixed = (args[0][0].to("meta"),) + tuple(args[0][1:])
     with pytest.raises(ValueError):
         kern(*mixed)
-    one_d = A.KERNELS[:4] + A.PREVIOUS
-    bad = inp["idx2"][0] if name in one_d else inp["idx"][0]
+    given = args[0][0] if name.startswith("scatter_min") else args[0][1]
+    bad = inp["idx2"][0] if given.dim() == 1 else inp["idx"][0]
     with pytest.raises(ValueError):
         if name.startswith("scatter_min"):
             kern(bad, bad, 1000)
@@ -346,6 +438,24 @@ def test_probe_entry_point_runs_on_the_cpu():
         assert row["max_abs_err"] == 0 and row["launches"] == 0
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert any(line.startswith("A1 ") for line in lines)
+    # the cluster sweep: every size that holds the table, no card numbers
+    assert set(res["by_cluster"]) == {"take_two_level", "take_axis0_axis1"}
+    for rows in res["by_cluster"].values():
+        assert set(rows) == {"2", "4", "8"}
+        assert all("clusters" not in row and row["ms"] > 0
+                   for row in rows.values())
+    assert set(res["read_rates"]) == set(P.RATED)
+
+
+@pytest.mark.parametrize("name", P.RATED)
+def test_read_rates_split_a_launch_on_the_cpu(name):
+    """Each rated lookup on twice the indices, bit-equal first: its fixed
+    part and added time make up its two times."""
+    inp = P.make_inputs(1000, 2048, 16, 3, "cpu", seed=9)
+    row = P.read_rates(inp, {name: 1.0}, lambda s: None)[name]
+    assert row["ms"] == 1.0 and row["ms_twice"] > 0
+    added = row["ms_twice"] - row["ms"]
+    assert row["fixed_ms"] == pytest.approx(row["ms"] - added)
 
 
 def test_time_stream_runs_on_the_cpu():
@@ -355,8 +465,9 @@ def test_time_stream_runs_on_the_cpu():
     table = torch.arange(cases.SIZE, dtype=torch.int32) * 7
     res = P.time_stream(table, idx, idx, val, 2)
     assert res["max_abs_err"] == {name: 0 for name in (
-        "take", "take_scalar", "take_scalar_l2", "scatter_min",
-        "scatter_min_atomic")}
+        "take", "take_two_level", "take_two_level_chunks",
+        "take_axis0_axis1", "take_axis0_axis1_l2", "take_scalar",
+        "take_scalar_l2", "scatter_min", "scatter_min_atomic")}
     assert res["scatter_min_reds"] == P.merged_reds(idx) == 183
     assert all(res[k] > 0 for k in ("scatter_min_ms", "take_scalar_ms"))
 
