@@ -14,18 +14,26 @@ size n and index count E of a graph (defaults: BA(100k, m=8)):
      and on sorted indices;
   D. `torch.sort` of E keys with two payloads;
   C1-C4, V1-V4. the eight hand-written kernels of
-     `rlap_tpu_torch/ops/access.py`, and the previous designs of C2, C3,
-     C4 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
-     `scatter_min_atomic`, `take_axis0_axis1_l2`), each held bit-equal
-     against its plain version first, then timed beside that plain version
-     and a yardstick: A1 for the lookups, `index_select` of the same 8192
-     indices for C3, B2 for the scatter-mins, `take_along_dim` on
-     ready-made int64 indices for V2-V4;
+     `rlap_tpu_torch/ops/access.py`, and the previous designs of C1, C2,
+     C3, C4, V2 and V4 (`take_l2`, `take_two_level_chunks`,
+     `take_scalar_l2`, `scatter_min_atomic`, `take_axis0_l2`,
+     `take_axis0_axis1_l2`), each held bit-equal against its plain
+     version first, then timed beside that plain version and a yardstick:
+     A1 for the lookups, `index_select` of the same 8192 indices for C3,
+     B2 for the scatter-mins, `take_along_dim` on ready-made int64
+     indices for V2-V4;
   C2/V4 by cluster. C2 and V4 at every cluster size of (2, 4, 8) whose
      shared memory holds the table, each held bit-equal first: ms,
      clusters launched, bytes staged and (on the card) cluster 0's staging
      and lookup spans in SM cycles, and the lookup's rate of reads;
-  Read rates. C1, both designs of C2 and both of V4 timed again on twice
+  C1 by route. C1 at every cluster size of (2, 4, 8) and tile of
+     `ROUTE_TILES` that hold the table, held bit-equal first: ms, and on
+     the card the clusters, rounds, bytes staged and sent across the
+     cluster, cluster 0's phase spans in SM cycles (staging, route, push,
+     cluster barriers, serve, pull, store) and the rate of its pulls;
+  V2 by slab. V2 at slabs of 32 and 16 columns, the same way: ms, and on
+     the card block 0's staging and lookup spans and the bytes staged;
+  Read rates. Both designs of C1, C2, V2 and V4 timed again on twice
      the indices (each set and the next, end to end): E over the added
      time is the rate of reads with the launch, the staging and the tail
      taken out, and 2 t(E) - t(2E) is that fixed part;
@@ -52,6 +60,7 @@ walk are (a parallel gather would be C1 again).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -129,6 +138,7 @@ def _calls(inp: dict) -> Dict[str, tuple]:
     scatter = [(i, v, nt) for i, v in zip(inp["idx"], inp["val"])]
     return {
         "take": (A.take, A.take_plain, one_d),
+        "take_l2": (A.take_l2, A.take_plain, one_d),
         "take_two_level": (A.take_two_level, A.take_two_level_plain,
                            two_level),
         "take_two_level_chunks": (A.take_two_level_chunks,
@@ -137,6 +147,7 @@ def _calls(inp: dict) -> Dict[str, tuple]:
         "scatter_min": (A.scatter_min, A.scatter_min_plain, scatter),
         "take2d": (A.take2d, A.take_two_level_plain, tiles),
         "take_axis0": (A.take_axis0, A.take_axis0_plain, tiles),
+        "take_axis0_l2": (A.take_axis0_l2, A.take_axis0_plain, tiles),
         "take_axis1": (A.take_axis1, A.take_axis1_plain, tiles),
         "take_axis0_axis1": (A.take_axis0_axis1, A.take_axis0_axis1_plain,
                              tiles),
@@ -193,7 +204,8 @@ def bounds_ms(inp: dict) -> Dict[str, float]:
     for prev, kname in (("take_two_level_chunks", "take_two_level"),
                         ("take_scalar_l2", "take_scalar"),
                         ("scatter_min_atomic", "scatter_min"),
-                        ("take_axis0_axis1_l2", "take_axis0_axis1")):
+                        ("take_axis0_axis1_l2", "take_axis0_axis1"),
+                        ("take_l2", "take"), ("take_axis0_l2", "take_axis0")):
         nbytes[prev] = nbytes[kname]
     return {k: 1e3 * v / HBM_BYTES for k, v in nbytes.items()}
 
@@ -225,14 +237,14 @@ def merged_reds(idx: torch.Tensor) -> int:
 def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
                 scatter_idx: torch.Tensor, val: torch.Tensor,
                 reps: int) -> dict:
-    """`take` and both designs of `take_two_level` (the table padded to
+    """Both designs of `take` and of `take_two_level` (the table padded to
     rows of 128) by `gather_idx`, and both designs of `scatter_min` of
     `val` at `scatter_idx`, on given index streams, beside torch's
     `index_select` and `scatter_reduce_("amin")` on the same streams as
     int64; and both designs of `take_scalar` on the first `TILE` indices
     of `gather_idx`. Each is held bit-equal to its plain version first,
-    and so are both designs of `take_axis0_axis1` on the whole rows of
-    128 of `gather_idx` (not timed).
+    and so are both designs of `take_axis0` and of `take_axis0_axis1` on
+    the whole rows of 128 of `gather_idx` (not timed).
     Each repetition works on its own copy of the streams, so that the
     indices come from device memory and not from L2."""
     n = table.shape[0]
@@ -248,9 +260,13 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
     rows = gather_idx[:gather_idx.numel() // A.LANES * A.LANES].view(
         -1, A.LANES)
     by_rows = A.take_axis0_axis1_plain(tab2d, rows)
+    by_col = A.take_axis0_plain(tab2d, rows)
     errs = {}
     for name, (got, want) in (
             ("take", (A.take(table, gather_idx), looked_up)),
+            ("take_l2", (A.take_l2(table, gather_idx), looked_up)),
+            ("take_axis0", (A.take_axis0(tab2d, rows), by_col)),
+            ("take_axis0_l2", (A.take_axis0_l2(tab2d, rows), by_col)),
             ("take_two_level", (A.take_two_level(tab2d, gather_idx),
                                 looked_up)),
             ("take_two_level_chunks",
@@ -274,6 +290,7 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
     return {
         "n": n, "e": gather_idx.shape[0],
         "take_ms": time_ms(A.take, [(table, i) for i in gathers]),
+        "take_l2_ms": time_ms(A.take_l2, [(table, i) for i in gathers]),
         "take_two_level_ms": time_ms(A.take_two_level,
                                      [(tab2d, i) for i in gathers]),
         "take_two_level_chunks_ms": time_ms(A.take_two_level_chunks,
@@ -362,19 +379,21 @@ def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
     tile = min(TILE, inp["e"])
     scalar = time_ms(_index_select, [(inp["table"], i[:tile].to(torch.int64))
                                      for i in inp["idx"]])
+    axis0 = time_ms(lambda t, r: torch.take_along_dim(t, r, 0),
+                    [(tab2d, r) for r in rows])
     v4 = time_ms(lambda t, r, ln: torch.take_along_dim(
         torch.take_along_dim(t, r, 0), ln, 1),
         [(tab2d, r, ln) for r, ln in zip(rows, lanes)])
     return {
-        "take": a1, "take_two_level": a1, "take_two_level_chunks": a1,
+        "take": a1, "take_l2": a1, "take_two_level": a1,
+        "take_two_level_chunks": a1,
         "take_scalar": scalar, "take_scalar_l2": scalar,
         "take2d": time_ms(_index_select,
                           [(inp["tpad"], i.reshape(-1).to(torch.int64))
                            for i in inp["idx2"]]),
         "scatter_min": torch_ms["B2 scatter_reduce_ amin, random idx"],
         "scatter_min_atomic": torch_ms["B2 scatter_reduce_ amin, random idx"],
-        "take_axis0": time_ms(lambda t, r: torch.take_along_dim(t, r, 0),
-                              [(tab2d, r) for r in rows]),
+        "take_axis0": axis0, "take_axis0_l2": axis0,
         "take_axis1": time_ms(lambda t, ln: torch.take_along_dim(t, ln, 1),
                               [(row0, ln) for ln in lanes]),
         "take_axis0_axis1": v4, "take_axis0_axis1_l2": v4,
@@ -421,6 +440,19 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     for kname in ("scatter_min", "scatter_min_atomic"):
         rows[kname]["reds"] = e if kname == "scatter_min_atomic" \
             else merged_reds(inp["idx"][0])
+    # the default plans of the routed and slab tables, and on the card
+    # their spans
+    rows["take"]["plan"] = A.route_plan(n)._asdict()
+    rows["take_axis0"]["plan"] = A.slab_plan(inp["nt"])._asdict()
+    if on_card:
+        rows["take"].update(route_spans(calls["take"][2][0]))
+        rows["take_axis0"].update(slab_spans(calls["take_axis0"][2][0]))
+        emit(f"   take default plan {rows['take']['plan']}: "
+             f"{json.dumps(rows['take']['spans'])}")
+        emit(f"   take_axis0 default plan {rows['take_axis0']['plan']}: "
+             f"stage {rows['take_axis0']['stage_cycles']} lookup "
+             f"{rows['take_axis0']['lookup_cycles']} cycles, "
+             f"{rows['take_axis0']['blocks']} blocks")
     # the cluster tables' default plans, and on the card their staging share
     for kname in ("take_two_level", "take_axis0_axis1"):
         rows[kname]["plan"] = A.table_plan(inp["nt"])._asdict()
@@ -435,6 +467,8 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
            else "host clock", "n": n, "nt": inp["nt"], "e": e,
            "m": inp["m"], "reps": reps, "torch_ms": torch_ms}
     res["by_cluster"] = cluster_sweep(inp, emit)
+    res["by_route"] = route_sweep(inp, emit)
+    res["by_slab"] = slab_sweep(inp, emit)
     res["read_rates"] = read_rates(
         inp, {k: rows[k]["ms"] for k in RATED}, emit)
     if on_card:
@@ -444,6 +478,9 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
             # every read of the launch over cluster 0's lookup span
             rows[kname]["lookup_reads_per_s"] = \
                 e / (rows[kname]["lookup_cycles"] / (1e3 * khz))
+        rows["take"].update(network_rates(rows["take"], khz))
+        for row in res["by_route"].values():
+            row.update(network_rates(row, khz))
     for kname, row in rows.items():
         row["launches"] = A.launch_counts[kname] - before[kname]
     res["kernels"] = {k: rows[k] for k in A.KERNELS}
@@ -467,37 +504,127 @@ def table_spans(kern: Callable, args: tuple, reps: int = 5, **kw) -> dict:
             "stage_share": stage / (stage + lookup), "clusters": clusters}
 
 
-def cluster_sweep(inp: dict, emit) -> dict:
-    """C2 and V4 at each of `SWEEP`'s cluster sizes whose shared memory
-    holds the table: each held bit-equal to its plain version, then timed;
-    on the card also its spans, clusters launched and bytes staged (each
-    cluster stages the whole table)."""
-    nt = inp["nt"]
+def _sweep(inp: dict, kname: str, configs: Dict[str, dict], spans: Callable,
+           sizes: Callable, emit) -> dict:
+    """`kname` at each of `configs` (label -> its keyword arguments): held
+    bit-equal to its plain version, then timed; on the card also
+    `spans(args, **kw)`; and `sizes(kw, row)` (its shared memory, and the
+    bytes staged where the row has the spans)."""
     on_card = inp["table"].device.type == "cuda"
-    calls = _calls(inp)
+    kern, plain, args = _calls(inp)[kname]
     out = {}
-    for kname in ("take_two_level", "take_axis0_axis1"):
-        kern, plain, args = calls[kname]
-        rows = {}
-        for k in (k for k in SWEEP if A.table_fits(nt, k)):
-            def fn(*a, _k=k):
-                return kern(*a, blocks=_k)
-            _require(torch.equal(fn(*args[0]), plain(*args[0])),
-                     f"{kname}: differs from its plain version at a cluster "
-                     f"of {k}, n={inp['n']} E={inp['e']} M={inp['m']}")
-            row = {"ms": time_ms(fn, args), "smem": A.table_plan(nt, k).smem}
-            if on_card:
-                row.update(table_spans(kern, args[0], blocks=k))
-                row["staged_bytes"] = row["clusters"] * 4 * nt
-            rows[str(k)] = row
-            emit(f"   {kname} cluster of {k}: {json.dumps(row)}")
-        out[kname] = rows
+    for label, kw in configs.items():
+        def fn(*a, _kw=kw):
+            return kern(*a, **_kw)
+        _require(torch.equal(fn(*args[0]), plain(*args[0])),
+                 f"{kname}: differs from its plain version at {kw}, "
+                 f"n={inp['n']} E={inp['e']} M={inp['m']}")
+        row = {"ms": time_ms(fn, args)}
+        if on_card:
+            row.update(spans(args[0], **kw))
+        row.update(sizes(kw, row))
+        out[label] = row
+        emit(f"   {kname} at {label}: {json.dumps(row)}")
     return out
 
 
+def cluster_sweep(inp: dict, emit) -> dict:
+    """C2 and V4 at each of `SWEEP`'s cluster sizes whose shared memory
+    holds the table (`_sweep`); on the card also their spans, clusters
+    launched and bytes staged (each cluster stages the whole table)."""
+    nt = inp["nt"]
+
+    def sizes(kw, row):
+        out = {"smem": A.table_plan(nt, kw["blocks"]).smem}
+        if "clusters" in row:
+            out["staged_bytes"] = row["clusters"] * 4 * nt
+        return out
+    configs = {str(k): {"blocks": k} for k in SWEEP if A.table_fits(nt, k)}
+    return {kname: _sweep(inp, kname, configs,
+                          functools.partial(table_spans, getattr(A, kname)),
+                          sizes, emit)
+            for kname in ("take_two_level", "take_axis0_axis1")}
+
+
 # the lookups that make one random table read an index
-RATED = ("take", "take_two_level", "take_two_level_chunks",
-         "take_axis0_axis1", "take_axis0_axis1_l2")
+RATED = ("take", "take_l2", "take_two_level", "take_two_level_chunks",
+         "take_axis0", "take_axis0_l2", "take_axis0_axis1",
+         "take_axis0_axis1_l2")
+# C1's spans (`cycles` of `ROUTE_SPANS`), in order, then its counts
+ROUTE_SPAN_NAMES = ("staged_at", "stage_wait", "route", "push", "barrier",
+                    "serve", "pull", "store", "whole")
+ROUTE_COUNT_NAMES = ("clusters", "rounds", "pushed_bytes")
+SLAB_SWEEP = (32, 16)  # V2's slab widths `slab_sweep` tries
+
+
+def route_spans(args: tuple, reps: int = 5, **kw) -> dict:
+    """C1's phase spans of cluster 0 in SM cycles, its clusters, rounds and
+    the bytes block 0 pushed across the cluster (each the median of `reps`
+    launches), on the card."""
+    cyc = torch.zeros(A.ROUTE_SPANS, dtype=torch.int64,
+                      device=args[0].device)
+    runs = []
+    for _ in range(reps):
+        A.take(*args, cycles=cyc, **kw)
+        runs.append(cyc.tolist())
+    med = [sorted(c)[len(c) // 2] for c in zip(*runs)]
+    spans = dict(zip(ROUTE_SPAN_NAMES, med))
+    counts = dict(zip(ROUTE_COUNT_NAMES, med[len(ROUTE_SPAN_NAMES):]))
+    return {"spans": spans, **counts}
+
+
+def network_rates(row: dict, khz: int) -> dict:
+    """Block 0's rate across the cluster, from a `route_spans` row: the
+    bytes it pulled back (as many as it pushed) over its pull span, in
+    which the block waits for every pull, in bytes a cycle and GB/s an
+    SM; and the bytes it pushed over its push span, which times issuing
+    the stores only (they complete by the next cluster barrier)."""
+    moved, spans = row["pushed_bytes"], row["spans"]
+    pull, push = spans["pull"], spans["push"]
+    return {"pull_bytes_per_cycle": moved / pull if pull else None,
+            "pull_gb_per_s_an_sm": moved * khz * 1e3 / pull / 1e9
+            if pull else None,
+            "push_bytes_per_cycle": moved / push if push else None}
+
+
+def slab_spans(args: tuple, reps: int = 5, **kw) -> dict:
+    """V2's staging and lookup spans of block 0 in SM cycles and the blocks
+    launched (the median of `reps` launches), on the card."""
+    row = table_spans(A.take_axis0, args, reps, **kw)
+    row["blocks"] = row.pop("clusters")
+    return row
+
+
+def route_sweep(inp: dict, emit) -> dict:
+    """C1 at each cluster size of `SWEEP` and tile of `ROUTE_TILES` whose
+    shared memory holds the table (`_sweep`); on the card also its phase
+    spans, clusters, rounds, and bytes staged (each cluster stages the
+    whole table) and sent across."""
+    n = inp["n"]
+
+    def sizes(kw, row):
+        out = {"smem": A.route_plan(n, **kw).smem}
+        if "clusters" in row:
+            out["staged_bytes"] = row["clusters"] * 4 * n
+        return out
+    configs = {f"k={k},tile={t}": {"blocks": k, "tile": t}
+               for k in SWEEP for t in A.ROUTE_TILES if A.route_fits(n, k, t)}
+    return _sweep(inp, "take", configs, route_spans, sizes, emit)
+
+
+def slab_sweep(inp: dict, emit) -> dict:
+    """V2 at each slab width of `SLAB_SWEEP` that a block holds
+    (`_sweep`); on the card also block 0's spans and the bytes staged
+    (each block its slab)."""
+    nt = inp["nt"]
+
+    def sizes(kw, row):
+        out = {"smem": A.slab_plan(nt, **kw).smem}
+        if "blocks" in row:
+            out["staged_bytes"] = row["blocks"] * out["smem"]
+        return out
+    configs = {str(c): {"cols": c} for c in SLAB_SWEEP if A.slab_fits(nt, c)}
+    return _sweep(inp, "take_axis0", configs, slab_spans, sizes, emit)
 
 
 def read_rates(inp: dict, ms: Dict[str, float], emit) -> dict:

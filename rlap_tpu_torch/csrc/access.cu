@@ -1,7 +1,8 @@
 // Gather and scatter-min access probes on Hopper: int32 kernels.
 //
 // They replace the eight Pallas TPU kernels of the access-probe tools:
-//   take_kernel             <- C1 k_take   tools/probe_access.py:135  (call :139)
+//   take_routed_cluster_kernel
+//                           <- C1 k_take   tools/probe_access.py:135  (call :139)
 //   take_two_level_cluster_kernel
 //                           <- C2 k_tala   tools/probe_access.py:170  (call :180)
 //   take_scalar_cluster_kernel
@@ -9,14 +10,15 @@
 //   fill_trigger_kernel + scatter_min_merged_kernel
 //                           <- C4 k_smin   tools/probe_access.py:239  (call :251)
 //   take2d_kernel           <- V1 k_v1     tools/probe_access2.py:85  (call :53)
-//   take_axis0_kernel       <- V2 k_v2     tools/probe_access2.py:97  (call :102)
+//   take_axis0_slab_kernel  <- V2 k_v2     tools/probe_access2.py:97  (call :102)
 //   take_axis1_kernel       <- V3 k_v3     tools/probe_access2.py:136 (call :143)
 //   take_axis0_axis1_shuffle_kernel
 //                           <- V4 k_v4     tools/probe_access2.py:175 (call :194)
-// and keep the first designs of C2, C3, C4 and V4 as named previous
-// variants, so that one run can compare them: take_two_level_kernel (the
-// table in per-block chunks), take_scalar_kernel (one thread against L2),
-// fill_kernel + scatter_min_kernel (one atomicMin an update) and
+// and keep the first designs of C1, C2, C3, C4, V2 and V4 as named
+// previous variants, so that one run can compare them: take_kernel (table
+// reads from L2), take_two_level_kernel (the table in per-block chunks),
+// take_scalar_kernel (one thread against L2), fill_kernel +
+// scatter_min_kernel (one atomicMin an update), take_axis0_kernel and
 // take_axis0_axis1_kernel (table reads from L2).
 //
 // The probed pattern is the vertex-table access of the rLap round: a
@@ -25,7 +27,9 @@
 // indices) a lookup moves 4 bytes of index, 4 of output and a 400 KB
 // table: 13.2 MB, 3.9 us at 3.35 TB/s. All are bound by bytes, except the
 // one-thread walk of C3, which is bound by latency; what they probe is how
-// far the random table access keeps them from that.
+// far the random table access keeps them from that. A random 4-byte read
+// that L2 serves costs a 32-byte sector: the first designs of C1, V1 and
+// V2 move 32 bytes of L2 traffic for each 4-byte entry they read.
 //
 // The TPU kernels hold the whole table in VMEM and walk index tiles with
 // a sequential grid. On this card a block has at most 227 KB of shared
@@ -35,10 +39,14 @@
 // cluster), which holds such a table on-chip. C3 stages it there for its
 // one-thread walk; C2 and V4 launch persistent clusters, each of which
 // stages the whole table in equal slices across its blocks and serves its
-// share of the indices from it (the cluster-resident table below). C1, V1
-// and V2 keep the table in device memory, served by the 50 MB L2; V3's
-// one 128-entry row is staged whole in each block. Ragged sizes are
-// masked in the kernels; the TPU calls need E to be a multiple of 8192.
+// share of the indices from it (the cluster-resident table below); C1
+// stages it the same way but sends each index to the block that holds its
+// entry, so that every table read is the owner's own shared memory (the
+// routed table below). V2 needs no cluster: lane j reads only column j, so
+// a block that stages a group of columns serves all of their reads. V1
+// keeps the table in device memory, served by the 50 MB L2; V3's one
+// 128-entry row is staged whole in each block. Ragged sizes are masked in
+// the kernels; the TPU calls need E to be a multiple of 8192.
 //
 // Indices must lie in [0, table size); they are not checked on the card.
 // A [R, 128] table is row-major, so row idx / 128, lane idx % 128 is the
@@ -74,9 +82,10 @@ inline int grid_for(int64_t work) {
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
-// C1. out[i] = table[idx[i]]: one thread per index, coalesced index loads
-// and stores, the table through the read-only path. The table is read
-// from L2 after its first touch: "table in L2" for "table in VMEM".
+// C1, previous variant (take_l2). out[i] = table[idx[i]]: one thread per
+// index, coalesced index loads and stores, the table through the
+// read-only path. The table is read from L2 after its first touch: "table
+// in L2" for "table in VMEM".
 __global__ void __launch_bounds__(THREADS)
 take_kernel(const int* __restrict__ table, const int* __restrict__ idx,
             int* __restrict__ out, int64_t e) {
@@ -417,9 +426,9 @@ take2d_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
   }
 }
 
-// V2. out[i, j] = tab[idx[i, j] / 128, j]: lane j always reads column j. A
-// plain gather against L2 (the table is not staged); the four entries of
-// a quad lie in four table rows.
+// V2, previous variant (take_axis0_l2). out[i, j] = tab[idx[i, j] / 128,
+// j]: lane j always reads column j. A plain gather against L2 (the table
+// is not staged); the four entries of a quad lie in four table rows.
 __global__ void __launch_bounds__(THREADS)
 take_axis0_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
                   int4* __restrict__ out, int64_t quads) {
@@ -522,20 +531,25 @@ __device__ __forceinline__ int slice_entry(uint32_t tab, unsigned j,
   return dsmem_load(tab + 4 * (j - q * slice), q);
 }
 
-// thread 0 starts the bulk copy of this block's slice; returns the slice
+// thread 0 starts the bulk copy of this block's slice of an n-entry table
+// (entries [rank slice, (rank + 1) slice)); every thread loads what the
+// copy cannot take (the last < 4 entries, or all where the table is not
+// 16-byte aligned). Returns the slice.
 __device__ __forceinline__ int* stage_slice(unsigned char* smem,
                                             const int* __restrict__ table,
-                                            int nt, int slice,
-                                            unsigned rank) {
+                                            int n, int slice, unsigned rank) {
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* tab = reinterpret_cast<int*>(smem + BARRIER_BYTES);
+  const int start = static_cast<int>(rank) * slice;
+  const int len = n - start < 0 ? 0 : (n - start < slice ? n - start : slice);
+  const bool bulk = (reinterpret_cast<uintptr_t>(table) & 15) == 0;
+  const int len4 = bulk ? (len & ~3) : 0;
   if (threadIdx.x == 0) {
-    const int start = static_cast<int>(rank) * slice;
-    const int len = nt - start < 0 ? 0 : (nt - start < slice ? nt - start
-                                                             : slice);
-    mbarrier_expect(bar, 4 * len);
-    if (len > 0) bulk_copy(tab, table + start, 4 * len, bar);
+    mbarrier_expect(bar, 4 * len4);
+    if (len4 > 0) bulk_copy(tab, table + start, 4 * len4, bar);
   }
+  for (int i = len4 + threadIdx.x; i < len; i += blockDim.x)
+    tab[i] = __ldg(table + start + i);
   return tab;
 }
 
@@ -673,6 +687,421 @@ take_axis0_axis1_shuffle_kernel(const int* __restrict__ table,
   record_spans(cycles, t0, t1, cluster);
 }
 
+// ---------------------------------------------------------------------------
+// The routed table (C1). The cluster-resident table of C2 reads another
+// block's entry by a random 4-byte ld.shared::cluster, which the probe
+// measures at ~0.28 reads an SM a cycle on this card; C1's first design
+// reads from L2, where each random 4-byte read costs a 32-byte sector.
+// Here every table read is a local ld.shared: each index is sent to the
+// block that holds its entry, which looks it up and sends the value back,
+// and only contiguous runs of 16-byte quads cross the cluster.
+//
+// A persistent grid of clusters of k blocks (k <= 8) of ROUTE_THREADS
+// threads, from the wrapper's route_plan; block r of each cluster holds
+// entries [r slice, (r + 1) slice) of the flat table. Each block takes an
+// equal share of E, ceil(E / blocks) consecutive indices (the last blocks
+// the ragged rest, maybe none), in `rounds` rounds of `chunk` <= `tile`
+// indices; every block runs the same rounds, empty ones too, so that no
+// block waits at a cluster barrier that another never reaches. A round t:
+//   route  load the chunk (coalesced 4-byte loads, U = tile / ROUTE_THREADS
+//          indices a thread), owner r = j / slice by a multiply-shift,
+//          slot in r's bucket by one shared atomic per owner and warp (the
+//          warp's lanes with the same owner found by k ballots); a warp
+//          lays out the bucket starts (multiples of 4) and sends each owner
+//          this block's count; each index's offset j - r slice goes into
+//          `sorted` at its bucket's start plus its slot.
+//   push   each bucket but the block's own goes to its owner's inbox, in
+//          the region kept for this sender, as 16-byte st.shared::cluster
+//          stores of consecutive quads.
+//   serve  (after a cluster barrier) each owner replaces every entry of
+//          its inbox regions, and of its own bucket in `sorted`, by its
+//          slice's entry: local ld.shared.
+//   pull   (after a cluster barrier) each block reads its buckets back
+//          from the owners' inboxes as 16-byte ld.shared::cluster loads of
+//          consecutive quads into `sorted`.
+//   store  each thread takes its indices' values from `sorted` by the
+//          bucket and slot it kept in registers, and stores them in index
+//          order (coalesced).
+// Inboxes and `sorted` are double-buffered by round parity, so that pull
+// and store of round t and route and push of round t + 1 share one phase
+// between barriers: two cluster barriers a round. An inbox region holds a
+// whole tile, so a skewed stream (all indices on one owner) fits.
+//
+// Layout of a block's dynamic shared memory: the mbarrier (16 bytes), its
+// slice (`slice` entries), the inboxes (2 x (k - 1) regions of `tile`
+// entries), `sorted` (2 x (tile + 4 k) entries), then RouteTail. Staging is
+// one bulk copy of the slice (its last < 4 entries, or all of it where the
+// table is not 16-byte aligned, by plain loads), which runs while the
+// first round is routed. `cycles` (optional, ROUTE_SPANS int64) receives
+// from block 0 of cluster 0, in clock64 cycles of its thread 0 (each span
+// includes that thread's waits at block barriers within it): [0] launch to
+// the slice staged, [1] the wait for it, [2] route, [3] push, [4] cluster
+// barriers, [5] serve, [6] pull, [7] store, [8] the whole kernel; then [9]
+// clusters launched, [10] rounds, [11] bytes the block pushed (and pulled
+// back) across the cluster.
+//
+// What bounds it: staging (clusters x 4 n bytes from L2), the indices and
+// outputs once from device memory (8 bytes an index), and the cluster
+// network, which carries (k - 1) / k of the indices there and back. On
+// the card the rounds are bound by latency, not by those bytes: with one
+// block an SM and a few indices a thread, each phase is a short chain of
+// dependent shared-memory steps between block and cluster barriers, and
+// the SM waits through it; the spans in `cycles` show where (PERF.md
+// section 6).
+constexpr int ROUTE_THREADS = 1024;
+constexpr int ROUTE_SMALL = 512;  // bytes of RouteTail's slot
+constexpr int ROUTE_SPANS = 12;
+
+struct RouteTail {
+  int cnt[8];          // this round's entries for each owner (slot counter)
+  int start[2][12];    // by buffer: bucket starts in `sorted`; [k] the end
+  int mine[2][8];      // by buffer: entries this block sent each owner
+  int recv[2][8];      // by buffer: entries received, by sender region
+  long long span[16];  // block 0's spans (slots of `cycles`)
+};
+static_assert(sizeof(RouteTail) <= ROUTE_SMALL, "RouteTail outgrew its slot");
+
+// sender s's inbox region in owner r != s
+__device__ __forceinline__ unsigned region(unsigned s, unsigned r) {
+  return s < r ? s : s - 1;
+}
+
+// the bucket that holds entry `at` of `sorted`: the last b whose start is
+// at most `at` (an empty bucket starts where the next one does)
+__device__ __forceinline__ unsigned bucket_of(const int* start, unsigned k,
+                                              int at) {
+  unsigned r = 0;
+  for (unsigned b = 1; b < k; ++b) r += start[b] <= at;
+  return r;
+}
+
+__device__ __forceinline__ void dsmem_store(uint32_t addr, unsigned rank,
+                                            int v) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 a;\n"
+      "mapa.shared::cluster.u32 a, %0, %1;\n"
+      "st.shared::cluster.u32 [a], %2;\n"
+      "}\n" ::"r"(addr),
+      "r"(rank), "r"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ void dsmem_store4(uint32_t addr, unsigned rank,
+                                             int4 v) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 a;\n"
+      "mapa.shared::cluster.u32 a, %0, %1;\n"
+      "st.shared::cluster.v4.u32 [a], {%2, %3, %4, %5};\n"
+      "}\n" ::"r"(addr),
+      "r"(rank), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+      : "memory");
+}
+
+__device__ __forceinline__ int4 dsmem_load4(uint32_t addr, unsigned rank) {
+  int4 v;
+  asm volatile(
+      "{\n"
+      ".reg .b32 a;\n"
+      "mapa.shared::cluster.u32 a, %4, %5;\n"
+      "ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [a];\n"
+      "}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "r"(addr), "r"(rank)
+      : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+template <int U>
+__global__ void __launch_bounds__(ROUTE_THREADS, 1)
+take_routed_cluster_kernel(const int* __restrict__ table,
+                           const int* __restrict__ idx, int* __restrict__ out,
+                           long long* __restrict__ cycles, int n, int slice,
+                           unsigned long long magic, int64_t e, int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t0 = clock64();
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned k = cluster.num_blocks(), s = cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int* tab = reinterpret_cast<int*>(smem + BARRIER_BYTES);
+  int* inbox = tab + slice;
+  const int width = tile + 4 * static_cast<int>(k);  // a buffer of `sorted`
+  int* sorted = inbox + 2 * (k - 1) * tile;
+  RouteTail* tl = reinterpret_cast<RouteTail*>(sorted + 2 * width);
+  const bool spans = cycles != nullptr && blockIdx.x == 0 && tid == 0;
+  long long mark = t0;
+  auto lap = [&](int slot) {
+    if (spans) {
+      const long long now = clock64();
+      tl->span[slot] += now - mark;
+      mark = now;
+    }
+  };
+
+  if (tid < 8) tl->cnt[tid] = 0;
+  if (tid < 16) tl->span[tid] = 0;
+  stage_slice(smem, table, n, slice, s);
+  cluster_arrive();  // this block has started; its shared memory exists
+
+  // the block's share of E, in `rounds` rounds of `chunk` indices
+  const int64_t share = (e + gridDim.x - 1) / gridDim.x;
+  const int rounds = static_cast<int>((share + tile - 1) / tile);
+  const int chunk = static_cast<int>((share + rounds - 1) / rounds);
+  const int64_t lo = (int64_t)blockIdx.x * share;
+  const int64_t hi = lo + share < e ? lo + share : e;
+  int j[U];   // a round's indices, -1 past its end
+  int rt[U];  // (owner << 16) | slot of each, -1 past the end
+
+  auto load = [&](int t) {
+    const int64_t base = lo + (int64_t)t * chunk;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = tid + u * ROUTE_THREADS;
+      j[u] = p < chunk && base + p < hi ? __ldg(idx + base + p) : -1;
+    }
+  };
+  // shared address of entry `at` of `sorted` in owner r's inbox region
+  auto inbox_at = [&](int q, unsigned r, int at) {
+    return smem_u32(inbox + (q * (k - 1) + region(s, r)) * tile + at -
+                    tl->start[q][r]);
+  };
+  auto route = [&](int t) {
+    const int q = t & 1;
+    int* sq = sorted + q * width;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool live = j[u] >= 0;
+      const unsigned r =
+          live ? static_cast<unsigned>(((unsigned long long)j[u] * magic) >>
+                                       40)
+               : 8u;
+      unsigned same = 0;
+      for (unsigned b = 0; b < k; ++b) {
+        const unsigned ballot = __ballot_sync(FULL_MASK, r == b);
+        if (r == b) same = ballot;
+      }
+      const int leader = live ? __ffs(same) - 1 : lane;
+      int base = 0;
+      if (live && lane == leader) base = atomicAdd(&tl->cnt[r], __popc(same));
+      base = __shfl_sync(FULL_MASK, base, leader);
+      rt[u] = live ? static_cast<int>(
+                         (r << 16) | (base + __popc(same & ((1u << lane) - 1))))
+                   : -1;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int c = lane < static_cast<int>(k) ? tl->cnt[lane] : 0;
+      const int c4 = (c + 3) & ~3;
+      int incl = c4;
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int o = __shfl_up_sync(FULL_MASK, incl, d);
+        if (lane >= d) incl += o;
+      }
+      if (lane <= static_cast<int>(k)) tl->start[q][lane] = incl - c4;
+      if (lane < static_cast<int>(k)) {
+        tl->mine[q][lane] = c;
+        tl->cnt[lane] = 0;
+        if (lane != static_cast<int>(s))
+          dsmem_store(smem_u32(&tl->recv[q][region(s, lane)]), lane, c);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (rt[u] >= 0) {
+        const unsigned r = static_cast<unsigned>(rt[u]) >> 16;
+        sq[tl->start[q][r] + (rt[u] & 0xffff)] =
+            j[u] - static_cast<int>(r) * slice;
+      }
+    __syncthreads();
+    lap(2);
+    const int quads = tl->start[q][k] / 4;
+    for (int qi = tid; qi < quads; qi += ROUTE_THREADS) {
+      const unsigned r = bucket_of(tl->start[q], k, 4 * qi);
+      if (r != s)
+        dsmem_store4(inbox_at(q, r, 4 * qi), r,
+                     reinterpret_cast<const int4*>(sq)[qi]);
+    }
+    if (spans)
+      tl->span[11] += 4 * (tl->start[q][k] - ((tl->mine[q][s] + 3) & ~3));
+    lap(3);
+  };
+  auto serve = [&](int t) {
+    const int q = t & 1;
+    for (unsigned g = 0; g + 1 < k; ++g) {
+      int* box = inbox + (q * (k - 1) + g) * tile;
+      const int c = tl->recv[q][g];
+      for (int i = tid; i < c; i += ROUTE_THREADS) box[i] = tab[box[i]];
+    }
+    int* own = sorted + q * width + tl->start[q][s];
+    const int c = tl->mine[q][s];
+    for (int i = tid; i < c; i += ROUTE_THREADS) own[i] = tab[own[i]];
+    lap(5);
+  };
+  auto pull_store = [&](int t) {
+    const int q = t & 1;
+    int* sq = sorted + q * width;
+    const int quads = tl->start[q][k] / 4;
+    for (int qi = tid; qi < quads; qi += ROUTE_THREADS) {
+      const unsigned r = bucket_of(tl->start[q], k, 4 * qi);
+      if (r != s)
+        reinterpret_cast<int4*>(sq)[qi] = dsmem_load4(inbox_at(q, r, 4 * qi),
+                                                      r);
+    }
+    __syncthreads();
+    lap(6);
+    const int64_t base = lo + (int64_t)t * chunk;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (rt[u] >= 0) {
+        const unsigned r = static_cast<unsigned>(rt[u]) >> 16;
+        out[base + tid + u * ROUTE_THREADS] =
+            sq[tl->start[q][r] + (rt[u] & 0xffff)];
+      }
+    lap(7);
+  };
+  auto sync_cluster = [&]() {
+    cluster.sync();
+    lap(4);
+  };
+
+  load(0);
+  cluster_wait();  // every block of the cluster has started
+  lap(4);
+  route(0);
+  if (tid == 0) {
+    mbarrier_wait(reinterpret_cast<uint64_t*>(smem), 0);
+    if (spans) tl->span[0] = clock64() - t0;
+  }
+  lap(1);
+  sync_cluster();  // every slice staged, every bucket of round 0 pushed
+  serve(0);
+  sync_cluster();
+  for (int t = 0; t < rounds; ++t) {
+    const bool more = t + 1 < rounds;
+    if (more) load(t + 1);
+    pull_store(t);
+    if (more) route(t + 1);
+    sync_cluster();  // round t pulled (its inboxes free); t + 1 pushed
+    if (more) {
+      serve(t + 1);
+      sync_cluster();
+    }
+  }
+  if (spans) {
+    for (int i = 0; i < 8; ++i) cycles[i] = tl->span[i];
+    cycles[8] = clock64() - t0;
+    cycles[9] = gridDim.x / k;
+    cycles[10] = rounds;
+    cycles[11] = tl->span[11];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// V2. out[i, j] = tab[idx[i, j] / 128, j]. Lane j only ever reads column j,
+// so the columns cut the table into parts that need no cluster: a block
+// owns a group of C columns (a slab of R x C entries, R = nt / 128 rows,
+// in its shared memory) and serves every read of those columns with
+// ld.shared. A persistent grid of `groups` x nb blocks (nb at most the SMs
+// a group gets, one block an SM), block b owning group b % groups. Each
+// stages its slab by 16-byte cp.async (4-byte where the table is not
+// 16-byte aligned) of its part of each table row, and while those are in
+// flight loads its first index rows. A warp takes 32 / C index rows at
+// once, C lanes a row: lane l reads idx[i, c0 + l % C] (coalesced), looks
+// up slab[(idx >> 7) C + l % C] and stores out[i, c0 + l % C]. At C = 32
+// bank = lane, so a warp's reads meet no bank conflict; at C = 16 two rows
+// share a warp, and a read conflicts when both rows' table rows have the
+// same parity. SLAB_UNROLL index rows are in flight a lane, the next ones
+// loaded before the current ones' reads. `cycles` (optional, 3 int64)
+// receives block 0's staging and lookup spans in clock64 cycles and the
+// blocks launched.
+//
+// What bounds it: staging (blocks x 4 R C bytes from L2, 13.2 MB at C = 32
+// and one block on each of 132 SMs) and the index rows in and the outputs
+// out (8 bytes an index) from device memory.
+constexpr int SLAB_THREADS = 1024;
+constexpr int SLAB_WARPS = SLAB_THREADS / 32;
+constexpr int SLAB_UNROLL = 8;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <int C>
+__global__ void __launch_bounds__(SLAB_THREADS, 1)
+take_axis0_slab_kernel(const int* __restrict__ tab,
+                       const int* __restrict__ idx, int* __restrict__ out,
+                       long long* __restrict__ cycles, int rows, int m) {
+  extern __shared__ __align__(16) int slab[];
+  constexpr int GROUPS = LANES / C, PER_WARP = 32 / C, QUADS = C / 4;
+  const long long t0 = clock64();
+  const int c0 = (blockIdx.x % GROUPS) * C;
+  const int nb = gridDim.x / GROUPS, bg = blockIdx.x / GROUPS;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if ((reinterpret_cast<uintptr_t>(tab) & 15) == 0) {
+    for (int qi = threadIdx.x; qi < rows * QUADS; qi += SLAB_THREADS) {
+      const int r = qi / QUADS, c = 4 * (qi % QUADS);
+      cp_async16(slab + r * C + c, tab + (int64_t)r * LANES + c0 + c);
+    }
+  } else {
+    for (int x = threadIdx.x; x < rows * C; x += SLAB_THREADS)
+      cp_async4(slab + x, tab + (int64_t)(x / C) * LANES + c0 + x % C);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const int col = lane % C;
+  const int stride = nb * SLAB_WARPS * PER_WARP;  // rows a pass of the group
+  int i = (bg * SLAB_WARPS + warp) * PER_WARP + lane / C;
+  int j[SLAB_UNROLL];
+#pragma unroll
+  for (int u = 0; u < SLAB_UNROLL; ++u) {
+    const int row = i + u * stride;
+    j[u] = row < m ? __ldg(idx + (int64_t)row * LANES + c0 + col) : 0;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const long long t1 = clock64();
+  for (; i < m; i += SLAB_UNROLL * stride) {
+    int next[SLAB_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SLAB_UNROLL; ++u) {
+      const int row = i + (u + SLAB_UNROLL) * stride;
+      next[u] = row < m ? __ldg(idx + (int64_t)row * LANES + c0 + col) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < SLAB_UNROLL; ++u) {
+      const int row = i + u * stride;
+      if (row < m)
+        out[(int64_t)row * LANES + c0 + col] = slab[(j[u] >> 7) * C + col];
+      j[u] = next[u];
+    }
+  }
+  if (cycles != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = clock64() - t1;
+    cycles[2] = gridDim.x;
+  }
+}
+
 // x / d == (x * magic) >> 40 for x * d < 2^40 (x < 2^19 for every table
 // that a cluster holds)
 inline unsigned long long div_magic(int d) {
@@ -718,13 +1147,13 @@ int clusters_held(const void* kernel, const cudaLaunchConfig_t& cfg,
   return 0;
 }
 
-// Launch `kernel` as persistent clusters of `blocks` blocks of
-// CLUSTER_THREADS threads with `smem` bytes of dynamic shared memory each:
-// as many clusters as the card holds at once (`clusters_held`), at most
-// `most`.
+// Launch `kernel` as persistent clusters of `blocks` blocks of `threads`
+// threads with `smem` bytes of dynamic shared memory each: as many
+// clusters as the card holds at once (`clusters_held`), at most `most`.
 template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int blocks, int smem,
-                    int64_t most, cudaStream_t stream, Args... args) {
+int launch_clusters(void (*kernel)(Params...), int threads, int blocks,
+                    int smem, int64_t most, cudaStream_t stream,
+                    Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = blocks;
@@ -732,7 +1161,7 @@ int launch_clusters(void (*kernel)(Params...), int blocks, int smem,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -756,6 +1185,43 @@ inline bool plan_holds(int nt, int blocks, int slice, int smem) {
          BARRIER_BYTES + 4 * (int64_t)slice <= smem;
 }
 
+// the routed plan: slices that cover the table, a tile of 1, 2 or 4
+// indices a thread, and room for the slice, inboxes, `sorted` and the tail
+inline bool route_holds(int n, int blocks, int slice, int tile, int smem) {
+  return blocks >= 1 && blocks <= 8 && slice % 4 == 0 &&
+         (int64_t)blocks * slice >= n &&
+         (tile == ROUTE_THREADS || tile == 2 * ROUTE_THREADS ||
+          tile == 4 * ROUTE_THREADS) &&
+         BARRIER_BYTES + 4 * (int64_t)slice +
+                 8 * (int64_t)(blocks - 1) * tile +
+                 8 * (int64_t)(tile + 4 * blocks) + ROUTE_SMALL <=
+             smem;
+}
+
+// V2's grid: `groups` column groups, each on at most the SMs it gets (one
+// block an SM) and on no more blocks than it has work for
+template <int C>
+int launch_slab(const int* tab, const int* idx, int* out, long long* cycles,
+                int rows, int m, int smem, cudaStream_t stream) {
+  constexpr int GROUPS = LANES / C;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_pass = SLAB_WARPS * (32 / C);
+  int nb = sms / GROUPS;
+  if (nb > (m + per_pass - 1) / per_pass) nb = (m + per_pass - 1) / per_pass;
+  if (nb < 1) nb = 1;
+  err = cudaFuncSetAttribute(take_axis0_slab_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  take_axis0_slab_kernel<C><<<nb * GROUPS, SLAB_THREADS, smem, stream>>>(
+      tab, idx, out, cycles, rows, m);
+  return last_error();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each launches on `stream`, does not
@@ -763,8 +1229,38 @@ inline bool plan_holds(int nt, int blocks, int slice, int smem) {
 // success).
 extern "C" {
 
-int access_take(const void* table, const void* idx, void* out, int e,
+int access_take(const void* table, const void* idx, void* out, void* cycles,
+                int n, int e, int blocks, int slice, int tile, int smem,
                 void* stream) {
+  if (e <= 0) return 0;
+  if (!route_holds(n, blocks, slice, tile, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_cluster = (int64_t)blocks * tile;
+  const int64_t most = (e + per_cluster - 1) / per_cluster;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(table);
+  const int* i = static_cast<const int*>(idx);
+  int* o = static_cast<int*>(out);
+  long long* c = static_cast<long long*>(cycles);
+  const unsigned long long magic = div_magic(slice);
+  switch (tile / ROUTE_THREADS) {
+    case 1:
+      return launch_clusters(take_routed_cluster_kernel<1>, ROUTE_THREADS,
+                             blocks, smem, most, s, t, i, o, c, n, slice,
+                             magic, (int64_t)e, tile);
+    case 2:
+      return launch_clusters(take_routed_cluster_kernel<2>, ROUTE_THREADS,
+                             blocks, smem, most, s, t, i, o, c, n, slice,
+                             magic, (int64_t)e, tile);
+    default:
+      return launch_clusters(take_routed_cluster_kernel<4>, ROUTE_THREADS,
+                             blocks, smem, most, s, t, i, o, c, n, slice,
+                             magic, (int64_t)e, tile);
+  }
+}
+
+int access_take_l2(const void* table, const void* idx, void* out, int e,
+                   void* stream) {
   if (e <= 0) return 0;
   take_kernel<<<grid_for(e), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(idx),
@@ -780,7 +1276,7 @@ int access_take_two_level(const void* table, const void* idx, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t per_cluster = (int64_t)blocks * CLUSTER_THREADS * TAKE_UNROLL;
   return launch_clusters(
-      take_two_level_cluster_kernel, blocks, smem,
+      take_two_level_cluster_kernel, CLUSTER_THREADS, blocks, smem,
       (quads + per_cluster - 1) / per_cluster,
       static_cast<cudaStream_t>(stream), static_cast<const int*>(table),
       static_cast<const int*>(idx), static_cast<int*>(out),
@@ -910,8 +1406,30 @@ int access_take2d(const void* tab, const void* idx, void* out, int m,
   return last_error();
 }
 
-int access_take_axis0(const void* tab, const void* idx, void* out, int m,
-                      void* stream) {
+int access_take_axis0(const void* tab, const void* idx, void* out,
+                      void* cycles, int nt, int m, int cols, int groups,
+                      int smem, void* stream) {
+  if (m <= 0) return 0;
+  const int rows = nt / LANES;
+  if (nt % LANES != 0 || groups * cols != LANES ||
+      4 * (int64_t)rows * cols > smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* t = static_cast<const int*>(tab);
+  const int* i = static_cast<const int*>(idx);
+  int* o = static_cast<int*>(out);
+  long long* c = static_cast<long long*>(cycles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cols) {
+    case 32: return launch_slab<32>(t, i, o, c, rows, m, smem, s);
+    case 16: return launch_slab<16>(t, i, o, c, rows, m, smem, s);
+    case 8: return launch_slab<8>(t, i, o, c, rows, m, smem, s);
+    case 4: return launch_slab<4>(t, i, o, c, rows, m, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int access_take_axis0_l2(const void* tab, const void* idx, void* out, int m,
+                         void* stream) {
   if (m <= 0) return 0;
   const int64_t quads = (int64_t)m * QUADS_PER_ROW;
   take_axis0_kernel<<<grid_for(quads), THREADS, 0,
@@ -940,7 +1458,8 @@ int access_take_axis0_axis1(const void* tab, const void* idx, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_cluster = blocks * CLUSTER_WARPS;
   return launch_clusters(
-      take_axis0_axis1_shuffle_kernel, blocks, smem, (m + per_cluster - 1) / per_cluster,
+      take_axis0_axis1_shuffle_kernel, CLUSTER_THREADS, blocks, smem,
+      (m + per_cluster - 1) / per_cluster,
       static_cast<cudaStream_t>(stream), static_cast<const int*>(tab),
       static_cast<const int4*>(idx), static_cast<int4*>(out),
       static_cast<long long*>(cycles), nt, slice, div_magic(slice), m);

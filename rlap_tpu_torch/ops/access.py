@@ -10,18 +10,23 @@ inside `main()` of `tools/probe_access.py` (C1 `pallas_take` :139, C2
 is on this card. `rlap_tpu_torch/bench/probe_access.py` is the entry point
 that times them beside torch's own gathers and scatters.
 
-Four probes were redesigned for Hopper. C3 (`take_scalar`) stages its
+Six probes were redesigned for Hopper. C3 (`take_scalar`) stages its
 table in the shared memory of a thread-block cluster and walks it with one
 thread; C4 (`scatter_min`) merges equal indices in registers and across
 the warp before its atomics and overlaps its fill. C2 (`take_two_level`)
 and V4 (`take_axis0_axis1`) launch persistent clusters, each of which
 holds the whole table in equal slices of its blocks' shared memory
-(`table_plan`) and serves its share of the indices from there. Their
-first designs stay as previous variants, so that one run compares both:
-`take_two_level_chunks` (the table staged in per-block chunks),
+(`table_plan`) and serves its share of the indices from there. C1
+(`take`) holds the table the same way but sends each index to the block
+that holds its entry and the value back, so that every table read is the
+owner's own shared memory (`route_plan`). V2 (`take_axis0`) reads column j
+for lane j only, so each block holds a slab of whole columns and serves
+their reads with no cluster (`slab_plan`). Their first designs stay as
+previous variants, so that one run compares both: `take_l2` (table reads
+from L2), `take_two_level_chunks` (the table staged in per-block chunks),
 `take_scalar_l2` (one thread against L2), `scatter_min_atomic` (one
-atomicMin an update after a separate fill) and `take_axis0_axis1_l2`
-(table reads from L2).
+atomicMin an update after a separate fill), `take_axis0_l2` and
+`take_axis0_axis1_l2` (table reads from L2).
 
 All tensors are int32 and contiguous. A table is `[n]`, or `[R, 128]` where
 the probe is two-level; indices are `[E]`, or `[M, 128]` tiles for the 2-D
@@ -36,9 +41,13 @@ blocks' shared memory holds (`scalar_plan`: 456,672 entries beside 8192
 indices), both 16-byte aligned for the bulk copies. `take_two_level` and
 `take_axis0_axis1` take a table that `CLUSTER_MAX` blocks hold
 (`table_plan`: 464,768 entries), 16-byte aligned, and raise `ValueError`
-beyond it; their previous designs take
-any size. `take_two_level` takes indices at any offset (its output shares
-it), `take_axis0_axis1` 16-byte aligned tiles. `scatter_min` takes
+beyond it; `take` a table that `CLUSTER_MAX` blocks hold beside their
+inboxes (`route_plan`: 332,256 entries at tiles of 1024 indices), and
+`take_axis0` one whose slabs of 4 columns fit a block (`slab_plan`:
+1,859,584 entries), both at any offset; their previous designs take
+any size. `take` and `take_two_level` take indices at any offset (the
+latter's output shares it), `take_axis0` index tiles at any offset,
+`take_axis0_axis1` 16-byte aligned tiles. `scatter_min` takes
 indices and values that lie at the same offset from a 16-byte boundary
 (views at any offset). The wrappers check this for CPU tensors too, so
 that both devices take the same inputs.
@@ -67,11 +76,25 @@ BARRIER_BYTES = 16  # the mbarrier's slot at the head of a block's stage
 # the cluster size of C2 and V4 where the table allows it: the fastest of
 # k = 2, 4, 8 for both at n=100000 on the card (PERF.md section 6)
 CLUSTER_DEFAULT = 2
+# C1's routed table: blocks of ROUTE_THREADS threads take tiles of 1, 2 or
+# 4 indices a thread; the tail of a block's stage holds its counters and
+# spans. ROUTE_BLOCKS and ROUTE_TILE are the cluster size and tile where
+# the table allows them: the fastest of the sweep at n=100000 on the card
+# (PERF.md section 6).
+ROUTE_THREADS = 1024
+ROUTE_TILES = (1024, 2048, 4096)
+ROUTE_SMALL = 512
+ROUTE_SPANS = 12  # entries of C1's `cycles`
+ROUTE_BLOCKS = 4
+ROUTE_TILE = 4096
+# V2's column slabs: the widths a block may own, and the default
+SLAB_COLS = (32, 16, 8, 4)
+SLAB_DEFAULT = 32
 KERNELS = ("take", "take_two_level", "take_scalar", "scatter_min", "take2d",
            "take_axis0", "take_axis1", "take_axis0_axis1")
-# the first designs of C2, C3, C4 and V4, kept to compare with
+# the first designs of C2, C3, C4, V4, C1 and V2, kept to compare with
 PREVIOUS = ("take_two_level_chunks", "take_scalar_l2", "scatter_min_atomic",
-            "take_axis0_axis1_l2")
+            "take_axis0_axis1_l2", "take_l2", "take_axis0_l2")
 NAMES = KERNELS + PREVIOUS
 
 launch_counts = {name: 0 for name in NAMES}
@@ -165,6 +188,102 @@ def table_plan(nt: int, blocks: Optional[int] = None) -> TablePlan:
     return TablePlan(blocks, *_table_smem(nt, blocks))
 
 
+class RoutePlan(NamedTuple):
+    """How C1 lays an n-entry table over a cluster of `blocks` blocks:
+    block r holds entries [r slice, (r + 1) slice); indices go through in
+    rounds of at most `tile`; `smem` is each block's dynamic shared memory
+    in bytes (barrier, slice, inboxes, sorted buckets, counters)."""
+    blocks: int
+    slice: int
+    tile: int
+    smem: int
+
+
+def _route_smem(n: int, blocks: int, tile: int) -> Tuple[int, int]:
+    slice_ = _round_up(-(-n // blocks), 4)
+    return slice_, (BARRIER_BYTES + 4 * slice_ + 8 * (blocks - 1) * tile
+                    + 8 * (tile + 4 * blocks) + ROUTE_SMALL)
+
+
+def route_fits(n: int, blocks: int, tile: int) -> bool:
+    """Whether a cluster of `blocks` blocks holds n entries beside the
+    inboxes and buckets of `tile` indices."""
+    return (1 <= blocks <= CLUSTER_MAX and tile in ROUTE_TILES
+            and _route_smem(n, blocks, tile)[1] <= SMEM_BLOCK)
+
+
+def route_plan(n: int, blocks: Optional[int] = None,
+               tile: Optional[int] = None) -> RoutePlan:
+    """C1's cluster for an n-entry table: `blocks` and `tile` where given;
+    else the largest tile up to `ROUTE_TILE` at which `ROUTE_BLOCKS`
+    blocks, or the fewest more, hold the table. Raises ValueError where
+    none does."""
+    if n <= 0:
+        raise ValueError(f"route_plan: needs a table, got n={n}")
+    if tile is not None and tile not in ROUTE_TILES:
+        raise ValueError(f"route_plan: a tile is one of {ROUTE_TILES}, got "
+                         f"{tile}")
+    tiles = (tile,) if tile is not None else tuple(
+        t for t in sorted(ROUTE_TILES, reverse=True) if t <= ROUTE_TILE)
+    ks = (blocks,) if blocks is not None else range(ROUTE_BLOCKS,
+                                                    CLUSTER_MAX + 1)
+    for k, t in ((k, t) for t in tiles for k in ks):
+        if route_fits(n, k, t):
+            slice_, smem = _route_smem(n, k, t)
+            return RoutePlan(k, slice_, t, smem)
+    raise ValueError(
+        f"take: a table of {n} entries does not fit a cluster of "
+        f"{blocks if blocks is not None else 'up to ' + str(CLUSTER_MAX)} "
+        f"blocks of {SMEM_BLOCK} bytes of shared memory each beside the "
+        f"inboxes of {tiles[-1]}-index tiles; {CLUSTER_MAX} blocks at tiles "
+        f"of {min(ROUTE_TILES)} hold at most {_route_cap()} entries. The "
+        f"previous design (take_l2) takes any size")
+
+
+def _route_cap() -> int:
+    """The most entries C1's largest cluster holds, at its smallest tile."""
+    t = min(ROUTE_TILES)
+    room = SMEM_BLOCK - _route_smem(0, CLUSTER_MAX, t)[1]
+    return room // 16 * 4 * CLUSTER_MAX
+
+
+class SlabPlan(NamedTuple):
+    """How V2 cuts an [R, 128] table: `groups` slabs of `cols` columns,
+    each held whole by a block in `smem` bytes of shared memory."""
+    cols: int
+    groups: int
+    smem: int
+
+
+def slab_fits(nt: int, cols: int) -> bool:
+    """Whether a block holds the R x `cols` slab of an nt-entry table."""
+    return cols in SLAB_COLS and 4 * (nt // LANES) * cols <= SMEM_BLOCK
+
+
+def slab_plan(nt: int, cols: Optional[int] = None) -> SlabPlan:
+    """V2's column slabs for an nt-entry [R, 128] table: `cols` where
+    given, else `SLAB_DEFAULT`, or the widest narrower one whose slab a
+    block holds. Raises ValueError where the given width, or slabs of 4
+    columns, do not fit."""
+    if nt <= 0 or nt % LANES:
+        raise ValueError(f"slab_plan: needs a [R, {LANES}] table, got "
+                         f"nt={nt}")
+    if cols is not None and cols not in SLAB_COLS:
+        raise ValueError(f"slab_plan: a slab is one of {SLAB_COLS} columns "
+                         f"wide, got {cols}")
+    tries = (cols,) if cols is not None else tuple(
+        c for c in SLAB_COLS if c <= SLAB_DEFAULT)
+    for c in tries:
+        if slab_fits(nt, c):
+            return SlabPlan(c, LANES // c, 4 * (nt // LANES) * c)
+    cap = SMEM_BLOCK // (4 * min(SLAB_COLS)) * LANES
+    raise ValueError(
+        f"take_axis0: a slab of {tries[-1]} columns of a {nt}-entry table "
+        f"does not fit a block's {SMEM_BLOCK} bytes of shared memory; "
+        f"slabs of {min(SLAB_COLS)} columns hold at most {cap} entries. "
+        f"The previous design (take_axis0_l2) takes any size")
+
+
 def vector_split(ptr: int, e: int) -> Tuple[int, int]:
     """(head, quads): the updates before the first 16-byte boundary of an
     int32 array at address `ptr`, and the whole quads of 4 after them, of
@@ -189,6 +308,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"access_{name}")
         fn.argtypes = [ptr, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
+    lib.access_take.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                i32, ptr]
+    lib.access_take_axis0.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                      i32, ptr]
     lib.access_take_two_level.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                           i32, i32, i32, i32, ptr]
     lib.access_take_two_level_chunks.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
@@ -249,17 +372,18 @@ def _aligned16(name: str, *ts: torch.Tensor) -> None:
 
 
 def _spans(name: str, cycles: Optional[torch.Tensor], cpu: bool,
-           like: torch.Tensor) -> Optional[int]:
-    """The device pointer of an optional int64 `cycles` buffer of 3, which
-    the cluster kernels fill on the card only; None without one."""
+           like: torch.Tensor, size: int = 3) -> Optional[int]:
+    """The device pointer of an optional int64 `cycles` buffer of `size`,
+    which the cluster and slab kernels fill on the card only; None without
+    one."""
     if cycles is None:
         return None
     if cpu:
         raise ValueError(f"{name}: cycles are counted on the card only")
-    if (cycles.dtype != torch.int64 or cycles.numel() < 3
+    if (cycles.dtype != torch.int64 or cycles.numel() < size
             or cycles.device != like.device or not cycles.is_contiguous()):
         raise ValueError(f"{name}: cycles must be a contiguous int64 "
-                         f"tensor of 3 on {like.device}")
+                         f"tensor of {size} on {like.device}")
     return cycles.data_ptr()
 
 
@@ -321,13 +445,37 @@ def take_axis0_axis1_plain(tab2d, idx2) -> torch.Tensor:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """C1: the lookup with the table served from L2; any E."""
+def take(table: torch.Tensor, idx: torch.Tensor,
+         blocks: Optional[int] = None, tile: Optional[int] = None,
+         cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C1: the lookup with each index sent to the block of a cluster that
+    holds its entry, which serves it from its own shared memory
+    (`route_plan(n, blocks, tile)`); table and indices at any offset, any
+    E. On the card, an int64 `cycles` of `ROUTE_SPANS` entries receives
+    cluster 0's phase spans in SM cycles (staged at, staging wait, route,
+    push, cluster barriers, serve, pull, store, whole), the clusters
+    launched, the rounds and the bytes block 0 pushed across the
+    cluster."""
     _check("take", table, idx, two_level=False, tiles=False)
+    cpu = _on_cpu(table, idx)
+    plan = route_plan(table.numel(), blocks, tile)
+    spans = _spans("take", cycles, cpu, table, ROUTE_SPANS)
+    if cpu:
+        return take_plain(table, idx)
+    out = torch.empty_like(idx)
+    _launch("take", (table, idx, out), spans, table.numel(), idx.numel(),
+            *plan)
+    return out
+
+
+def take_l2(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """C1's previous design: the lookup with the table served from L2; any
+    size."""
+    _check("take_l2", table, idx, two_level=False, tiles=False)
     if _on_cpu(table, idx):
         return take_plain(table, idx)
     out = torch.empty_like(idx)
-    _launch("take", (table, idx, out), idx.numel())
+    _launch("take_l2", (table, idx, out), idx.numel())
     return out
 
 
@@ -453,9 +601,31 @@ def take2d(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
     return _tiles("take2d", take_two_level_plain, tab2d, idx2)
 
 
-def take_axis0(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
-    """V2: out[i, j] = tab2d[idx2[i, j] // 128, j]."""
-    return _tiles("take_axis0", take_axis0_plain, tab2d, idx2)
+def take_axis0(tab2d: torch.Tensor, idx2: torch.Tensor,
+               cols: Optional[int] = None,
+               cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """V2: out[i, j] = tab2d[idx2[i, j] // 128, j], each block serving the
+    reads of one group of columns from a slab of them in its shared memory
+    (`slab_plan(nt, cols)`); table and tiles at any offset, any M. On the
+    card, an int64 `cycles` of 3 entries receives block 0's staging and
+    lookup spans in SM cycles and the blocks launched."""
+    name = "take_axis0"
+    _check(name, tab2d, idx2, two_level=True, tiles=True)
+    cpu = _on_cpu(tab2d, idx2)
+    plan = slab_plan(tab2d.numel(), cols)
+    spans = _spans(name, cycles, cpu, tab2d)
+    if cpu:
+        return take_axis0_plain(tab2d, idx2)
+    out = torch.empty_like(idx2)
+    _launch(name, (tab2d, idx2, out), spans, tab2d.numel(), idx2.shape[0],
+            *plan)
+    return out
+
+
+def take_axis0_l2(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
+    """V2's previous design: the table reads from L2; any size, 16-byte
+    aligned tiles."""
+    return _tiles("take_axis0_l2", take_axis0_plain, tab2d, idx2)
 
 
 def take_axis1(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:

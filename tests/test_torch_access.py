@@ -347,3 +347,210 @@ def test_cluster_wrappers_take_their_options_on_the_cpu():
     flat = torch.zeros(NT + 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="16-byte"):
         A.take_two_level(flat[1:].view(-1, 128), idx)
+
+
+# C1's routed table and V2's column slabs: the plans, and what the kernels
+# compute, emulated step by step in numpy against the tools' references.
+
+def _routed_take(table, idx, plan, clusters):
+    """C1's kernel in numpy: shares, rounds, owners by the multiply-shift,
+    counting sort into buckets at 4-aligned starts, serve from the owner's
+    slice, un-permute by the slot each index kept."""
+    e, k, sl, tile = idx.size, plan.blocks, plan.slice, plan.tile
+    magic = ((1 << 40) + sl - 1) // sl
+    share = -(-e // (clusters * k))
+    rounds = -(-share // tile)
+    chunk = -(-share // rounds)
+    assert chunk <= tile
+    out = np.full(e, -1, np.int64)
+    slices = [table[r * sl:(r + 1) * sl] for r in range(k)]
+    for b in range(clusters * k):
+        lo, hi = b * share, min((b + 1) * share, e)
+        for t in range(rounds):
+            pos = np.arange(lo + t * chunk, min(lo + (t + 1) * chunk, hi))
+            j = idx[pos].astype(np.int64)
+            r = (j * magic) >> 40
+            np.testing.assert_array_equal(r, j // sl)
+            counts = np.bincount(r, minlength=k)
+            padded = -(-counts // 4) * 4
+            start = np.concatenate([[0], np.cumsum(padded)])
+            assert start[k] <= tile + 4 * k
+            slot = np.empty(pos.size, np.int64)
+            for o in range(k):
+                mine = np.flatnonzero(r == o)
+                slot[mine] = np.arange(mine.size)
+            box = np.zeros(start[k], np.int64)
+            box[start[r] + slot] = j - r * sl  # offsets, bucket by bucket
+            for o in range(k):  # each owner serves its bucket
+                seg = slice(start[o], start[o] + counts[o])
+                box[seg] = slices[o][box[seg]]
+            out[pos] = box[start[r] + slot]
+    assert (out >= 0).all() or table.min() < 0
+    return out
+
+
+@pytest.mark.parametrize("clusters", [1, 3])
+@pytest.mark.parametrize("blocks,tile", [(1, 1024), (2, 1024), (4, 4096),
+                                         (8, 2048)])
+@pytest.mark.parametrize("e,m", SHAPES)
+def test_routed_take_emulation_matches_jnp(e, m, blocks, tile, clusters):
+    d = _inputs(e, m, 12)
+    plan = A.route_plan(N, blocks, tile)
+    _same(torch.from_numpy(_routed_take(d["table"], d["idx"], plan,
+                                        clusters).astype(np.int32)),
+          jnp.asarray(d["table"])[jnp.asarray(d["idx"])])
+
+
+@pytest.mark.parametrize("blocks", [2, 8])
+@pytest.mark.parametrize("name", list(cases.STREAMS))
+def test_routed_take_emulation_on_hub_streams(name, blocks):
+    """Runs of one index up to 3000 long and a stream of one index: whole
+    chunks land on one owner and fit its inbox region."""
+    idx, _val = cases.hub_stream(name)
+    table = np.random.default_rng(13).integers(0, 1 << 30, cases.SIZE
+                                               ).astype(np.int32)
+    plan = A.route_plan(cases.SIZE, blocks, 1024)
+    got = _routed_take(table, idx.numpy(), plan, 2)
+    _same(torch.from_numpy(got.astype(np.int32)),
+          jnp.asarray(table)[jnp.asarray(idx.numpy())])
+    _same(A.take(torch.from_numpy(table), idx, blocks=blocks),
+          jnp.asarray(table)[jnp.asarray(idx.numpy())])
+
+
+def _slab_take_axis0(tab2d, idx2, cols):
+    """V2's kernel in numpy: each group's slab of `cols` columns, read at
+    (row >> 7) * cols + column."""
+    out = np.empty_like(idx2)
+    for g in range(128 // cols):
+        slab = np.ascontiguousarray(tab2d[:, g * cols:(g + 1) * cols])
+        part = idx2[:, g * cols:(g + 1) * cols]
+        out[:, g * cols:(g + 1) * cols] = slab.reshape(-1)[
+            (part >> 7) * cols + np.arange(cols)]
+    return out
+
+
+@pytest.mark.parametrize("cols", A.SLAB_COLS)
+@pytest.mark.parametrize("e,m", SHAPES)
+def test_slab_take_axis0_emulation_matches_jnp(e, m, cols):
+    d = _inputs(e, m, 14)
+    ref = jnp.take_along_axis(jnp.asarray(d["tab2d"]),
+                              jnp.asarray(d["idx2"]) // 128, axis=0)
+    _same(torch.from_numpy(_slab_take_axis0(d["tab2d"], d["idx2"], cols)),
+          ref)
+    _same(A.take_axis0(_t(d["tab2d"]), _t(d["idx2"]), cols=cols), ref)
+
+
+@pytest.mark.parametrize("name", list(cases.STREAMS))
+def test_slab_take_axis0_emulation_on_hub_streams(name):
+    """The hub streams as rows of 128 (the whole rows of each): every lane
+    of a row reads its own column of one table row."""
+    idx, _val = cases.hub_stream(name)
+    rows = idx.numpy()[:idx.numel() // 128 * 128].reshape(-1, 128)
+    nt = -(-cases.SIZE // 128) * 128
+    tab2d = np.random.default_rng(15).integers(
+        0, 1 << 30, (nt // 128, 128)).astype(np.int32)
+    ref = jnp.take_along_axis(jnp.asarray(tab2d), jnp.asarray(rows) // 128,
+                              axis=0)
+    for cols in (32, 16):
+        _same(torch.from_numpy(_slab_take_axis0(tab2d, rows, cols)), ref)
+    _same(A.take_axis0(torch.from_numpy(tab2d), torch.from_numpy(rows)), ref)
+
+
+# (nt, cols of the default plan): 32 columns up to 1816 rows, then the
+# widest narrower slab that fits; nt not a multiple of cols x 128 included
+SLAB_EDGES = [(128, 32), (1024, 32), (100_096, 32), (100_224, 32),
+              (232_448, 32), (232_576, 16), (464_896, 16), (465_024, 8),
+              (929_792, 8), (929_920, 4), (1_859_584, 4)]
+
+
+@pytest.mark.parametrize("nt,cols", SLAB_EDGES)
+def test_slab_plan_edges(nt, cols):
+    plan = A.slab_plan(nt)
+    assert plan.cols == cols and plan.groups * cols == 128
+    assert plan.smem == 4 * (nt // 128) * cols <= A.SMEM_BLOCK
+    if cols < A.SLAB_DEFAULT:  # the next wider slab does not fit
+        assert not A.slab_fits(nt, 2 * cols)
+
+
+def test_slab_plan_raises_past_slabs_of_4_columns():
+    with pytest.raises(ValueError, match="1859584 entries"):
+        A.slab_plan(1_859_584 + 128)
+    with pytest.raises(ValueError, match="previous design"):
+        A.slab_plan(232_576, cols=32)
+    for bad in (0, 1000):
+        with pytest.raises(ValueError):
+            A.slab_plan(bad)
+    with pytest.raises(ValueError):
+        A.slab_plan(1024, cols=64)
+
+
+# n -> (blocks, tile) of the default plan: 4 blocks at tiles of 4096 up
+# to 100,720 entries, then the largest smaller tile at which 4 or more
+# blocks hold the table
+ROUTE_EDGES = {1: (4, 4096), 3001: (4, 4096), 100_000: (4, 4096),
+               100_720: (4, 4096), 100_721: (4, 2048), 166_256: (4, 2048),
+               166_257: (5, 2048), 204_764: (7, 2048), 204_765: (5, 1024),
+               332_256: (8, 1024)}
+
+
+@pytest.mark.parametrize("n,plan", sorted(ROUTE_EDGES.items()))
+def test_route_plan_covers_the_table(n, plan):
+    """Equal slices of whole quads covering the table; the owner's
+    multiply-shift is exact for every entry; what the plan reserves fits a
+    block, and one entry more would not fit the same cluster and tile."""
+    got = A.route_plan(n)
+    assert (got.blocks, got.tile) == plan
+    assert got.slice % 4 == 0 and got.blocks * got.slice >= n
+    assert (got.blocks - 1) * got.slice < n or n <= 4 * got.blocks
+    assert got.smem <= A.SMEM_BLOCK and A.route_fits(n, *plan)
+    magic = ((1 << 40) + got.slice - 1) // got.slice
+    j = np.arange(n, dtype=np.int64)
+    np.testing.assert_array_equal((j * magic) >> 40, j // got.slice)
+    if n in (100_720, 166_256, 204_764, 332_256):
+        assert not A.route_fits(n + 1, *plan)
+
+
+def test_route_plan_raises_past_a_cluster():
+    with pytest.raises(ValueError, match=r"at most 332256 entries"):
+        A.route_plan(332_257)
+    with pytest.raises(ValueError, match="take_l2"):
+        A.route_plan(100_000, blocks=2, tile=4096)
+    for bad in ({"blocks": 0}, {"blocks": 9}, {"tile": 512}):
+        with pytest.raises(ValueError):
+            A.route_plan(1000, **bad)
+    with pytest.raises(ValueError):
+        A.route_plan(0)
+
+
+def test_routed_and_slab_wrappers_take_their_options_on_the_cpu():
+    """A cluster size, tile or slab width runs the plain version on the
+    CPU; views at any offset are taken; a cycles buffer and a table past
+    the plan are refused there as on the card; the previous designs take
+    it."""
+    d = _inputs(4096, 32, 16)
+    table, idx = _t(d["table"]), _t(d["idx"])
+    tab2d, idx2 = _t(d["tab2d"]), _t(d["idx2"])
+    ref = jnp.asarray(d["table"])[jnp.asarray(d["idx"])]
+    for blocks, tile in ((None, None), (1, 1024), (4, 4096), (8, 2048)):
+        _same(A.take(table, idx, blocks=blocks, tile=tile), ref)
+    _same(A.take(table, idx[3:4001]), ref[3:4001])
+    _same(A.take(table[1:], idx[5:9] % (N - 1)),
+          jnp.asarray(d["table"][1:])[jnp.asarray(d["idx"][5:9] % (N - 1))])
+    ref2 = jnp.take_along_axis(jnp.asarray(d["tab2d"]),
+                               jnp.asarray(d["idx2"]) // 128, axis=0)
+    for cols in (None, 32, 16, 8, 4):
+        _same(A.take_axis0(tab2d, idx2, cols=cols), ref2)
+    flat = _t(d["idx2"]).reshape(-1)
+    view = torch.cat([flat[:1], flat])[1:].view(-1, 128)
+    _same(A.take_axis0(tab2d, view), ref2)
+    for fn, args in ((A.take, (table, idx)), (A.take_axis0, (tab2d, idx2))):
+        with pytest.raises(ValueError, match="card"):
+            fn(*args, cycles=torch.zeros(A.ROUTE_SPANS, dtype=torch.int64))
+    big = torch.zeros(332_257, dtype=torch.int32)
+    with pytest.raises(ValueError, match="take_l2"):
+        A.take(big, idx)
+    assert torch.equal(A.take_l2(big, idx), torch.zeros_like(idx))
+    wide = torch.zeros((1_859_584 // 128 + 1, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="take_axis0_l2"):
+        A.take_axis0(wide, idx2)
+    assert torch.equal(A.take_axis0_l2(wide, idx2), torch.zeros_like(idx2))
