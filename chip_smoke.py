@@ -9,10 +9,10 @@
 2. Builds both kernel libraries with nvcc, side by side: the InfoNCE
    kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the access probes
    (`rlap_tpu_torch/csrc/access.cu`: the eight, and the previous designs
-   of C1, C2, C3, C4, V2 and V4), and prints ptxas's resource lines
+   of C2, C3, C4, V2 and V4), and prints ptxas's resource lines
    (registers, spills, static shared memory) and remarks, one line each
-   for the redesigned C1, C2, C3, C4, V2 and V4 kernels, the dynamic
-   shared memory of the tensor-core kernels, of the C1, C2, C3 and V4
+   for the redesigned C2, C3, C4, V1, V2 and V4 kernels, the dynamic
+   shared memory of the tensor-core kernels, of the C2, C3 and V4
    clusters and of V2's slabs, and how many
    `wgmma` (HGMMA) and full
    waits behind them (WARPGROUP.DEPBAR) the machine code of each `wgmma`
@@ -33,13 +33,14 @@
    plain float32 versions and of the plain emulation of the kernels' 3xTF32
    arithmetic beside.
 4. Probe phase. Holds the eight access kernels and the previous designs
-   of C1, C2, C3, C4, V2 and V4 (`take_l2`, `take_two_level_chunks`,
-   `take_scalar_l2`, `scatter_min_atomic`, `take_axis0_l2`,
-   `take_axis0_axis1_l2`) bit-equal against their
-   plain versions at a ragged shape (n=1000, E=12345, M=97 index tiles;
-   C3's cluster is 1 block), one launch counted per call; holds both
-   designs of C1 and C2 (and of V2 and V4, on the stream's whole rows of
-   128), both scatter-mins and both scalar walks bit-equal
+   of C2, C3, C4, V2 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
+   `scatter_min_atomic`, `take_axis0_l2`, `take_axis0_axis1_l2`) bit-equal
+   against their plain versions at a ragged shape (n=1000, E=12345, M=97
+   index tiles; C3's cluster is 1 block), one launch counted per call;
+   holds C1 and both designs of C2 (and V1, both designs of V2 and V4,
+   and V3, on the stream's whole rows of 128), both scatter-mins and both
+   scalar walks
+   bit-equal
    on the index stream of the rLap selection on BA(n, m=8) (both
    endpoints of the canonical edge pool; C3 on its first 8192 gather
    indices, a cluster of 2) and times them beside torch's `index_select`
@@ -51,13 +52,11 @@
    that shape before it times it; holds C2 and V4 bit-equal at every
    cluster size of 2, 4 and 8 and times them there, with the clusters
    launched, the bytes staged and cluster 0's staging and lookup spans;
-   holds C1 bit-equal at every cluster size of 2, 4 and 8 and tile that
-   holds the table and times it there, with cluster 0's phase spans
-   (staging, route, push, cluster barriers, serve, pull, store) and the
-   rate of its pulls across the cluster; holds V2 bit-equal at slabs of
-   32 and 16 columns and times it there, with its spans; times both
-   designs of C1, C2, V2 and V4 again on twice the indices, for their
-   rate of reads apart from launch, staging and tail; and reads C3's
+   holds V2
+   bit-equal at slabs of 32 and 16 columns and times it there, with its
+   spans; reads V1's load and select spans; times C1, V1 and both
+   designs of C2, V2 and V4 again on twice the indices, for their rate of reads
+   apart from launch, staging and tail; and reads C3's
    staging and walk cycles and its local and remote
    reads on random, block-0-only and other-block-only indices.
 5. Checks that `approximate_cholesky(barabasi_albert(2000, 8), rng.key(0),
@@ -119,7 +118,7 @@
    t = n/2 call beside the single-device `eliminate`'s.
 10. Prints one JSON line of the probe, one of the main path, one of each
    bench, one of the CLI phase, one of the sharded phase, one of all
-   eleven kernels and the six previous designs (each row with the card's
+   eleven kernels and the seven other designs (each row with the card's
    name and power limit), the nvidia-smi line, and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
    exits non-zero.
@@ -206,7 +205,6 @@ REPLACES = {
     "infonce_bwd_da": "rlap_tpu/ops/infonce_pallas.py:86",
     "infonce_bwd_db": "rlap_tpu/ops/infonce_pallas.py:104",
     "take": "tools/probe_access.py:139",
-    "take_l2": "tools/probe_access.py:139",
     "take_two_level": "tools/probe_access.py:180",
     "take_two_level_chunks": "tools/probe_access.py:180",
     "take_scalar": "tools/probe_access.py:215",
@@ -482,9 +480,9 @@ def probe_phase(g) -> tuple:
     stream["take_scalar_cluster"] = A.scalar_plan(n, P.TILE).blocks
     stream["take_two_level_plan"] = A.table_plan(-(-n // A.LANES)
                                                  * A.LANES)._asdict()
-    stream["take_plan"] = A.route_plan(n)._asdict()
-    print(f"rlap_select_stream BA(n={n}, m=8), both designs of C1, C2, V2 "
-          f"and V4, both scatter-mins and both scalar walks bit-equal: "
+    print(f"rlap_select_stream BA(n={n}, m=8), C1, V1, V3, both designs of "
+          f"C2, V2 and V4, both scatter-mins and both scalar walks "
+          f"bit-equal: "
           f"{json.dumps(stream)}", flush=True)
 
     A.reset_launch_counts()
@@ -510,19 +508,15 @@ def probe_phase(g) -> tuple:
             f"({r['stage_cycles'] / khz:.5f} ms) lookup "
             f"{r['lookup_cycles']} ({r['lookup_cycles'] / khz:.5f} ms) "
             f"cycles" for k, r in rows.items()), flush=True)
-    for key, rows in (("take", res["by_route"]),
-                      ("take_axis0", res["by_slab"])):
-        print(f"{key} by plan at n={PROBE_N}: " + "; ".join(
-            f"{k} {r['ms']:.5f} ms, " + json.dumps(
-                {x: y for x, y in r.items() if x != "ms"})
-            for k, r in rows.items()), flush=True)
-    r = res["kernels"]["take"]
-    print(f"take default plan {json.dumps(r['plan'])}: {r['ms']:.5f} ms, "
-          f"{r['clusters']} clusters, {r['rounds']} rounds, spans "
-          f"{json.dumps(r['spans'])} cycles, {r['pushed_bytes']} bytes "
-          f"pushed and pulled by block 0, pulls at "
-          f"{r['pull_bytes_per_cycle']:.4g} bytes a cycle "
-          f"({r['pull_gb_per_s_an_sm']:.4g} GB/s an SM)", flush=True)
+    print(f"take_axis0 by plan at n={PROBE_N}: " + "; ".join(
+        f"{k} {r['ms']:.5f} ms, " + json.dumps(
+            {x: y for x, y in r.items() if x != "ms"})
+        for k, r in res["by_slab"].items()), flush=True)
+    r = res["kernels"]["take2d"]
+    print(f"take2d {r['ms']:.5f} ms (bound "
+          f"{r['bound_ms']:.5f}): warp 0 of block 0 load "
+          f"{r['load_cycles']} select {r['select_cycles']} cycles, "
+          f"{r['blocks']} blocks", flush=True)
     r = res["kernels"]["take_axis0"]
     print(f"take_axis0 default plan {json.dumps(r['plan'])}: {r['ms']:.5f} "
           f"ms, staging {r['stage_cycles']} of "
@@ -1263,11 +1257,13 @@ def main(argv=None) -> int:
                     or "spill" in line or "C75" in line):
                 print(f"  ptxas: {line.strip()}")
     for kname, usage in ptxas_usage(built[1][1], (
-            "take_routed_cluster_kernel", "take_two_level_cluster_kernel",
+            "take_two_level_cluster_kernel",
             "take_scalar_cluster_kernel", "fill_trigger_kernel",
-            "scatter_min_merged_kernel", "take_axis0_slab_kernel",
+            "scatter_min_merged_kernel", "take2d_kernel",
+            "take_axis0_slab_kernel",
             "take_axis0_axis1_shuffle_kernel")).items():
-        print(f"  ptxas, redesigned C1 / C2 / C3 / C4 / V2 / V4: {kname}: "
+        print(f"  ptxas, redesigned C2 / C3 / C4 / V1 / V2 / V4: "
+              f"{kname}: "
               f"{usage}", flush=True)
     plan = A.scalar_plan(PROBE_N, P.TILE)
     print(f"  dynamic shared memory of take_scalar_cluster_kernel at "
@@ -1278,11 +1274,6 @@ def main(argv=None) -> int:
           f"take_axis0_axis1_shuffle_kernel at n={PROBE_N}, by cluster "
           f"size: " + ", ".join(f"k={k} {A.table_plan(nt, k).smem} bytes "
                                 f"a block" for k in P.SWEEP), flush=True)
-    print(f"  dynamic shared memory of take_routed_cluster_kernel at "
-          f"n={PROBE_N}, by cluster size and tile: " + ", ".join(
-              f"k={k} tile={t} {A.route_plan(PROBE_N, k, t).smem} bytes a "
-              f"block" for k in P.SWEEP for t in A.ROUTE_TILES
-              if A.route_fits(PROBE_N, k, t)), flush=True)
     print(f"  dynamic shared memory of take_axis0_slab_kernel at n={PROBE_N}, "
           f"by slab width: " + ", ".join(
               f"{c} columns {A.slab_plan(nt, c).smem} bytes a block"
@@ -1347,20 +1338,16 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["yardstick_ms"],
             "previous_design": name in A.PREVIOUS, "card": smi,
             "shape": {"table": probe["n"], "indices": row["elements"]}})
-        if name == "take":
-            kernels[-1].update(
-                plan=row["plan"], spans_cycles=row["spans"],
-                clusters=row["clusters"], rounds=row["rounds"],
-                pushed_bytes=row["pushed_bytes"],
-                pull_bytes_per_cycle=row["pull_bytes_per_cycle"],
-                pull_gb_per_s_an_sm=row["pull_gb_per_s_an_sm"],
-                ms_by_plan={k: r["ms"] for k, r in probe["by_route"].items()})
         if name == "take_axis0":
             kernels[-1].update(
                 plan=row["plan"], stage_cycles=row["stage_cycles"],
                 lookup_cycles=row["lookup_cycles"], blocks=row["blocks"],
                 ms_by_plan={k: r["ms"] for k, r in probe["by_slab"].items()})
-        if name in ("take", "take_l2"):
+        if name == "take2d":
+            kernels[-1].update(load_cycles=row["load_cycles"],
+                               select_cycles=row["select_cycles"],
+                               blocks=row["blocks"])
+        if name in ("take", "take2d"):
             kernels[-1]["rlap_stream_ms"] = \
                 probe["rlap_select_stream"][f"{name}_ms"]
         if name in ("take_two_level", "take_axis0_axis1"):

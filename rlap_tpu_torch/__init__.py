@@ -5,9 +5,10 @@ The module layout mirrors `rlap_tpu` path for path, so the counterpart of
 torch and numpy only; it shares no code with the JAX package.
 
 Entry points (`GraceTrainer`, `approximate_cholesky`, `RLap`, the synthetic
-generators) run on `default_device()` unless the caller passes `device=`.
-There is no silent CPU fallback: without a card, torch raises at the first
-CUDA allocation.
+generators, `rng.key`) run on `default_device()` unless the caller passes
+`device=`. `Graph` and `approximate_cholesky` are re-exported here, as the
+JAX package does. There is no silent CPU fallback: without a card, torch
+raises at the first CUDA allocation.
 """
 
 from __future__ import annotations
@@ -25,3 +26,8 @@ def default_device() -> torch.device:
 
 def resolve_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
+
+
+# below `resolve_device`, which these modules import from the package
+from rlap_tpu_torch.core.graph import Graph  # noqa: E402,F401
+from rlap_tpu_torch.ops.rlap import approximate_cholesky  # noqa: E402,F401

@@ -14,26 +14,24 @@ size n and index count E of a graph (defaults: BA(100k, m=8)):
      and on sorted indices;
   D. `torch.sort` of E keys with two payloads;
   C1-C4, V1-V4. the eight hand-written kernels of
-     `rlap_tpu_torch/ops/access.py`, and the previous designs of C1, C2,
-     C3, C4, V2 and V4 (`take_l2`, `take_two_level_chunks`,
-     `take_scalar_l2`, `scatter_min_atomic`, `take_axis0_l2`,
-     `take_axis0_axis1_l2`), each held bit-equal against its plain
-     version first, then timed beside that plain version and a yardstick:
-     A1 for the lookups, `index_select` of the same 8192 indices for C3,
-     B2 for the scatter-mins, `take_along_dim` on ready-made int64
-     indices for V2-V4;
+     `rlap_tpu_torch/ops/access.py`, and the previous designs of C2, C3,
+     C4, V2 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
+     `scatter_min_atomic`, `take_axis0_l2`, `take_axis0_axis1_l2`), each
+     held bit-equal against
+     its plain version first, then timed beside that plain version and a
+     yardstick: A1 for the lookups, `index_select` of the same 8192
+     indices for C3, B2 for the scatter-mins, advanced indexing
+     `tab2d[rows0[:, None], lanes]` for V1, `take_along_dim` for V2-V4,
+     all on
+     ready-made int64 indices; on the card also V1's load and select
+     spans;
   C2/V4 by cluster. C2 and V4 at every cluster size of (2, 4, 8) whose
      shared memory holds the table, each held bit-equal first: ms,
      clusters launched, bytes staged and (on the card) cluster 0's staging
      and lookup spans in SM cycles, and the lookup's rate of reads;
-  C1 by route. C1 at every cluster size of (2, 4, 8) and tile of
-     `ROUTE_TILES` that hold the table, held bit-equal first: ms, and on
-     the card the clusters, rounds, bytes staged and sent across the
-     cluster, cluster 0's phase spans in SM cycles (staging, route, push,
-     cluster barriers, serve, pull, store) and the rate of its pulls;
   V2 by slab. V2 at slabs of 32 and 16 columns, the same way: ms, and on
      the card block 0's staging and lookup spans and the bytes staged;
-  Read rates. Both designs of C1, C2, V2 and V4 timed again on twice
+  Read rates. C1, V1 and both designs of C2, V2 and V4 timed again on twice
      the indices (each set and the next, end to end): E over the added
      time is the rate of reads with the launch, the staging and the tail
      taken out, and 2 t(E) - t(2E) is that fixed part;
@@ -138,14 +136,13 @@ def _calls(inp: dict) -> Dict[str, tuple]:
     scatter = [(i, v, nt) for i, v in zip(inp["idx"], inp["val"])]
     return {
         "take": (A.take, A.take_plain, one_d),
-        "take_l2": (A.take_l2, A.take_plain, one_d),
         "take_two_level": (A.take_two_level, A.take_two_level_plain,
                            two_level),
         "take_two_level_chunks": (A.take_two_level_chunks,
                                   A.take_two_level_plain, two_level),
         "take_scalar": (A.take_scalar, A.take_plain, scalar),
         "scatter_min": (A.scatter_min, A.scatter_min_plain, scatter),
-        "take2d": (A.take2d, A.take_two_level_plain, tiles),
+        "take2d": (A.take2d, A.take2d_plain, tiles),
         "take_axis0": (A.take_axis0, A.take_axis0_plain, tiles),
         "take_axis0_l2": (A.take_axis0_l2, A.take_axis0_plain, tiles),
         "take_axis1": (A.take_axis1, A.take_axis1_plain, tiles),
@@ -205,7 +202,7 @@ def bounds_ms(inp: dict) -> Dict[str, float]:
                         ("take_scalar_l2", "take_scalar"),
                         ("scatter_min_atomic", "scatter_min"),
                         ("take_axis0_axis1_l2", "take_axis0_axis1"),
-                        ("take_l2", "take"), ("take_axis0_l2", "take_axis0")):
+                        ("take_axis0_l2", "take_axis0")):
         nbytes[prev] = nbytes[kname]
     return {k: 1e3 * v / HBM_BYTES for k, v in nbytes.items()}
 
@@ -237,14 +234,15 @@ def merged_reds(idx: torch.Tensor) -> int:
 def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
                 scatter_idx: torch.Tensor, val: torch.Tensor,
                 reps: int) -> dict:
-    """Both designs of `take` and of `take_two_level` (the table padded to
-    rows of 128) by `gather_idx`, and both designs of `scatter_min` of
-    `val` at `scatter_idx`, on given index streams, beside torch's
-    `index_select` and `scatter_reduce_("amin")` on the same streams as
-    int64; and both designs of `take_scalar` on the first `TILE` indices
-    of `gather_idx`. Each is held bit-equal to its plain version first,
-    and so are both designs of `take_axis0` and of `take_axis0_axis1` on
-    the whole rows of 128 of `gather_idx` (not timed).
+    """`take` and both designs of `take_two_level` (the table padded to
+    rows of 128) by `gather_idx`, `take2d` on its whole rows of 128, and
+    both designs of `scatter_min` of `val` at
+    `scatter_idx`, on given index streams, beside torch's `index_select`
+    and `scatter_reduce_("amin")` on the same streams as int64; and both
+    designs of `take_scalar` on the first `TILE` indices of `gather_idx`.
+    Each is held bit-equal to its plain version first, and so are both
+    designs of `take_axis0` and of `take_axis0_axis1`, and `take_axis1`,
+    on the same rows (not timed).
     Each repetition works on its own copy of the streams, so that the
     indices come from device memory and not from L2."""
     n = table.shape[0]
@@ -257,16 +255,19 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
     tile = gather_idx[:TILE]
     ref = A.scatter_min_plain(scatter_idx, val, n)
     looked_up = A.take_plain(table, gather_idx)
-    rows = gather_idx[:gather_idx.numel() // A.LANES * A.LANES].view(
-        -1, A.LANES)
+    whole = gather_idx.numel() // A.LANES * A.LANES
+    rows = gather_idx[:whole].view(-1, A.LANES)
     by_rows = A.take_axis0_axis1_plain(tab2d, rows)
     by_col = A.take_axis0_plain(tab2d, rows)
+    by_first = A.take2d_plain(tab2d, rows)
     errs = {}
     for name, (got, want) in (
             ("take", (A.take(table, gather_idx), looked_up)),
-            ("take_l2", (A.take_l2(table, gather_idx), looked_up)),
+            ("take2d", (A.take2d(tab2d, rows), by_first)),
             ("take_axis0", (A.take_axis0(tab2d, rows), by_col)),
             ("take_axis0_l2", (A.take_axis0_l2(tab2d, rows), by_col)),
+            ("take_axis1", (A.take_axis1(tab2d, rows),
+                            A.take_axis1_plain(tab2d, rows))),
             ("take_two_level", (A.take_two_level(tab2d, gather_idx),
                                 looked_up)),
             ("take_two_level_chunks",
@@ -287,16 +288,17 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
                  f"stream, max abs err {errs[name]}")
     scatter_args = [(i, v, n) for i, v in zip(scatters, vals)]
     scalar_args = [(table, i[:TILE]) for i in gathers]
+    row_args = [(tab2d, i[:whole].view(-1, A.LANES)) for i in gathers]
     return {
-        "n": n, "e": gather_idx.shape[0],
+        "n": n, "e": gather_idx.shape[0], "rows": rows.shape[0],
         "take_ms": time_ms(A.take, [(table, i) for i in gathers]),
-        "take_l2_ms": time_ms(A.take_l2, [(table, i) for i in gathers]),
         "take_two_level_ms": time_ms(A.take_two_level,
                                      [(tab2d, i) for i in gathers]),
         "take_two_level_chunks_ms": time_ms(A.take_two_level_chunks,
                                             [(tab2d, i) for i in gathers]),
         "index_select_ms": time_ms(
             _index_select, [(table, i.to(torch.int64)) for i in gathers]),
+        "take2d_ms": time_ms(A.take2d, row_args),
         "scatter_min_ms": time_ms(A.scatter_min, scatter_args),
         "scatter_min_atomic_ms": time_ms(A.scatter_min_atomic, scatter_args),
         "scatter_reduce_ms": time_ms(
@@ -369,8 +371,9 @@ def _torch_sections(inp: dict, emit) -> Dict[str, float]:
 
 
 def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
-    """One torch call for each kernel's function. V2-V4 time
-    `take_along_dim` on int64 rows and lanes made beforehand."""
+    """One torch call for each kernel's function, on int64 indices made
+    beforehand: V1 advanced indexing `tab2d[rows0[:, None], lanes]` (rows0
+    the row of each index row's first index), V2-V4 `take_along_dim`."""
     tab2d, m = inp["tab2d"], inp["m"]
     rows = [(i // A.LANES).to(torch.int64) for i in inp["idx2"]]
     lanes = [(i % A.LANES).to(torch.int64) for i in inp["idx2"]]
@@ -385,12 +388,12 @@ def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
         torch.take_along_dim(t, r, 0), ln, 1),
         [(tab2d, r, ln) for r, ln in zip(rows, lanes)])
     return {
-        "take": a1, "take_l2": a1, "take_two_level": a1,
+        "take": a1, "take_two_level": a1,
         "take_two_level_chunks": a1,
         "take_scalar": scalar, "take_scalar_l2": scalar,
-        "take2d": time_ms(_index_select,
-                          [(inp["tpad"], i.reshape(-1).to(torch.int64))
-                           for i in inp["idx2"]]),
+        "take2d": time_ms(lambda t, r0, ln: t[r0, ln],
+                          [(tab2d, r[:, :1].contiguous(), ln)
+                           for r, ln in zip(rows, lanes)]),
         "scatter_min": torch_ms["B2 scatter_reduce_ amin, random idx"],
         "scatter_min_atomic": torch_ms["B2 scatter_reduce_ amin, random idx"],
         "take_axis0": axis0, "take_axis0_l2": axis0,
@@ -415,8 +418,8 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     torch_ms = _torch_sections(inp, emit)
 
     errs = check(inp)
-    emit(f"C1-C4, V1-V4 and the previous C2, C3, C4, V4 bit-equal to their "
-         f"plain versions at n={n} E={e} M={inp['m']}")
+    emit(f"C1-C4, V1-V4 and their other designs bit-equal to their plain "
+         f"versions at n={n} E={e} M={inp['m']}")
     before = dict(A.launch_counts)
     yard = _yardsticks(inp, torch_ms)
     bound = bounds_ms(inp)
@@ -440,15 +443,14 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     for kname in ("scatter_min", "scatter_min_atomic"):
         rows[kname]["reds"] = e if kname == "scatter_min_atomic" \
             else merged_reds(inp["idx"][0])
-    # the default plans of the routed and slab tables, and on the card
-    # their spans
-    rows["take"]["plan"] = A.route_plan(n)._asdict()
+    # the slab table's default plan, and on the card its spans and V1's
     rows["take_axis0"]["plan"] = A.slab_plan(inp["nt"])._asdict()
     if on_card:
-        rows["take"].update(route_spans(calls["take"][2][0]))
         rows["take_axis0"].update(slab_spans(calls["take_axis0"][2][0]))
-        emit(f"   take default plan {rows['take']['plan']}: "
-             f"{json.dumps(rows['take']['spans'])}")
+        rows["take2d"].update(take2d_spans(calls["take2d"][2][0]))
+        emit(f"   take2d: load {rows['take2d']['load_cycles']} select "
+             f"{rows['take2d']['select_cycles']} cycles (warp 0 of block "
+             f"0), {rows['take2d']['blocks']} blocks")
         emit(f"   take_axis0 default plan {rows['take_axis0']['plan']}: "
              f"stage {rows['take_axis0']['stage_cycles']} lookup "
              f"{rows['take_axis0']['lookup_cycles']} cycles, "
@@ -467,7 +469,6 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
            else "host clock", "n": n, "nt": inp["nt"], "e": e,
            "m": inp["m"], "reps": reps, "torch_ms": torch_ms}
     res["by_cluster"] = cluster_sweep(inp, emit)
-    res["by_route"] = route_sweep(inp, emit)
     res["by_slab"] = slab_sweep(inp, emit)
     res["read_rates"] = read_rates(
         inp, {k: rows[k]["ms"] for k in RATED}, emit)
@@ -478,9 +479,6 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
             # every read of the launch over cluster 0's lookup span
             rows[kname]["lookup_reads_per_s"] = \
                 e / (rows[kname]["lookup_cycles"] / (1e3 * khz))
-        rows["take"].update(network_rates(rows["take"], khz))
-        for row in res["by_route"].values():
-            row.update(network_rates(row, khz))
     for kname, row in rows.items():
         row["launches"] = A.launch_counts[kname] - before[kname]
     res["kernels"] = {k: rows[k] for k in A.KERNELS}
@@ -547,44 +545,18 @@ def cluster_sweep(inp: dict, emit) -> dict:
 
 
 # the lookups that make one random table read an index
-RATED = ("take", "take_l2", "take_two_level", "take_two_level_chunks",
+RATED = ("take", "take_two_level", "take_two_level_chunks", "take2d",
          "take_axis0", "take_axis0_l2", "take_axis0_axis1",
          "take_axis0_axis1_l2")
-# C1's spans (`cycles` of `ROUTE_SPANS`), in order, then its counts
-ROUTE_SPAN_NAMES = ("staged_at", "stage_wait", "route", "push", "barrier",
-                    "serve", "pull", "store", "whole")
-ROUTE_COUNT_NAMES = ("clusters", "rounds", "pushed_bytes")
 SLAB_SWEEP = (32, 16)  # V2's slab widths `slab_sweep` tries
 
 
-def route_spans(args: tuple, reps: int = 5, **kw) -> dict:
-    """C1's phase spans of cluster 0 in SM cycles, its clusters, rounds and
-    the bytes block 0 pushed across the cluster (each the median of `reps`
-    launches), on the card."""
-    cyc = torch.zeros(A.ROUTE_SPANS, dtype=torch.int64,
-                      device=args[0].device)
-    runs = []
-    for _ in range(reps):
-        A.take(*args, cycles=cyc, **kw)
-        runs.append(cyc.tolist())
-    med = [sorted(c)[len(c) // 2] for c in zip(*runs)]
-    spans = dict(zip(ROUTE_SPAN_NAMES, med))
-    counts = dict(zip(ROUTE_COUNT_NAMES, med[len(ROUTE_SPAN_NAMES):]))
-    return {"spans": spans, **counts}
-
-
-def network_rates(row: dict, khz: int) -> dict:
-    """Block 0's rate across the cluster, from a `route_spans` row: the
-    bytes it pulled back (as many as it pushed) over its pull span, in
-    which the block waits for every pull, in bytes a cycle and GB/s an
-    SM; and the bytes it pushed over its push span, which times issuing
-    the stores only (they complete by the next cluster barrier)."""
-    moved, spans = row["pushed_bytes"], row["spans"]
-    pull, push = spans["pull"], spans["push"]
-    return {"pull_bytes_per_cycle": moved / pull if pull else None,
-            "pull_gb_per_s_an_sm": moved * khz * 1e3 / pull / 1e9
-            if pull else None,
-            "push_bytes_per_cycle": moved / push if push else None}
+def take2d_spans(args: tuple, reps: int = 5) -> dict:
+    """V1's load and select spans of warp 0 of block 0 in SM cycles and
+    the blocks launched (the median of `reps` launches), on the card."""
+    row = table_spans(A.take2d, args, reps)
+    return {"load_cycles": row["stage_cycles"],
+            "select_cycles": row["lookup_cycles"], "blocks": row["clusters"]}
 
 
 def slab_spans(args: tuple, reps: int = 5, **kw) -> dict:
@@ -593,23 +565,6 @@ def slab_spans(args: tuple, reps: int = 5, **kw) -> dict:
     row = table_spans(A.take_axis0, args, reps, **kw)
     row["blocks"] = row.pop("clusters")
     return row
-
-
-def route_sweep(inp: dict, emit) -> dict:
-    """C1 at each cluster size of `SWEEP` and tile of `ROUTE_TILES` whose
-    shared memory holds the table (`_sweep`); on the card also its phase
-    spans, clusters, rounds, and bytes staged (each cluster stages the
-    whole table) and sent across."""
-    n = inp["n"]
-
-    def sizes(kw, row):
-        out = {"smem": A.route_plan(n, **kw).smem}
-        if "clusters" in row:
-            out["staged_bytes"] = row["clusters"] * 4 * n
-        return out
-    configs = {f"k={k},tile={t}": {"blocks": k, "tile": t}
-               for k in SWEEP for t in A.ROUTE_TILES if A.route_fits(n, k, t)}
-    return _sweep(inp, "take", configs, route_spans, sizes, emit)
 
 
 def slab_sweep(inp: dict, emit) -> dict:

@@ -1,8 +1,7 @@
 // Gather and scatter-min access probes on Hopper: int32 kernels.
 //
 // They replace the eight Pallas TPU kernels of the access-probe tools:
-//   take_routed_cluster_kernel
-//                           <- C1 k_take   tools/probe_access.py:135  (call :139)
+//   take_kernel             <- C1 k_take   tools/probe_access.py:135  (call :139)
 //   take_two_level_cluster_kernel
 //                           <- C2 k_tala   tools/probe_access.py:170  (call :180)
 //   take_scalar_cluster_kernel
@@ -14,12 +13,11 @@
 //   take_axis1_kernel       <- V3 k_v3     tools/probe_access2.py:136 (call :143)
 //   take_axis0_axis1_shuffle_kernel
 //                           <- V4 k_v4     tools/probe_access2.py:175 (call :194)
-// and keep the first designs of C1, C2, C3, C4, V2 and V4 as named
-// previous variants, so that one run can compare them: take_kernel (table
-// reads from L2), take_two_level_kernel (the table in per-block chunks),
-// take_scalar_kernel (one thread against L2), fill_kernel +
-// scatter_min_kernel (one atomicMin an update), take_axis0_kernel and
-// take_axis0_axis1_kernel (table reads from L2).
+// and keep the previous designs of C2, C3, C4, V2 and V4 as named
+// variants, so that one run can compare them: take_two_level_kernel (the
+// table in per-block chunks), take_scalar_kernel (one thread against L2),
+// fill_kernel + scatter_min_kernel (one atomicMin an update),
+// take_axis0_kernel and take_axis0_axis1_kernel (table reads from L2).
 //
 // The probed pattern is the vertex-table access of the rLap round: a
 // lookup in an n-entry table by ~2 |edges| indices, and a scatter-min into
@@ -28,8 +26,8 @@
 // table: 13.2 MB, 3.9 us at 3.35 TB/s. All are bound by bytes, except the
 // one-thread walk of C3, which is bound by latency; what they probe is how
 // far the random table access keeps them from that. A random 4-byte read
-// that L2 serves costs a 32-byte sector: the first designs of C1, V1 and
-// V2 move 32 bytes of L2 traffic for each 4-byte entry they read.
+// that L2 serves costs a 32-byte sector: C1's take_kernel and V2's first
+// design move 32 bytes of L2 traffic for each 4-byte entry they read.
 //
 // The TPU kernels hold the whole table in VMEM and walk index tiles with
 // a sequential grid. On this card a block has at most 227 KB of shared
@@ -39,12 +37,13 @@
 // cluster), which holds such a table on-chip. C3 stages it there for its
 // one-thread walk; C2 and V4 launch persistent clusters, each of which
 // stages the whole table in equal slices across its blocks and serves its
-// share of the indices from it (the cluster-resident table below); C1
-// stages it the same way but sends each index to the block that holds its
-// entry, so that every table read is the owner's own shared memory (the
-// routed table below). V2 needs no cluster: lane j reads only column j, so
-// a block that stages a group of columns serves all of their reads. V1
-// keeps the table in device memory, served by the 50 MB L2; V3's one
+// share of the indices from it (the cluster-resident table below). C1
+// reads the table from the 50 MB L2: a design that held it in a cluster
+// and routed each index to the block holding its entry took twice the
+// time on this card. V2 needs no cluster: lane
+// j reads only column j, so a block that stages a group of columns serves
+// all of their reads. V1 reads one 512-byte table row for each row of 128
+// indices, from L2, and selects its lanes inside the warp; V3's one
 // 128-entry row is staged whole in each block. Ragged sizes are masked in
 // the kernels; the TPU calls need E to be a multiple of 8192.
 //
@@ -58,6 +57,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <utility>
 #include <vector>
 
 namespace cg = cooperative_groups;
@@ -82,10 +82,10 @@ inline int grid_for(int64_t work) {
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
-// C1, previous variant (take_l2). out[i] = table[idx[i]]: one thread per
-// index, coalesced index loads and stores, the table through the
-// read-only path. The table is read from L2 after its first touch: "table
-// in L2" for "table in VMEM".
+// C1 (take). out[i] = table[idx[i]]: one thread per index, coalesced
+// index loads and stores, the table through the read-only path. The table
+// is read from L2 after its first touch: "table in L2" for "table in
+// VMEM".
 __global__ void __launch_bounds__(THREADS)
 take_kernel(const int* __restrict__ table, const int* __restrict__ idx,
             int* __restrict__ out, int64_t e) {
@@ -408,21 +408,72 @@ scatter_min_merged_kernel(const int* __restrict__ idx,
   }
 }
 
-// V1. out[i, j] = tab[idx[i, j] / 128, idx[i, j] % 128] on [M, 128] index
-// tiles: four indices a thread, 128-bit index loads and output stores.
-__device__ __forceinline__ int lookup(const int* __restrict__ tab, int j) {
-  return __ldg(tab + (j >> 7) * LANES + (j & (LANES - 1)));
-}
+// V1. out[i, j] = tab[idx[i, 0] / 128, idx[i, j] % 128]: k_v1 gathers the
+// table row of every index, keeps sel[:, 0, :], the row of each index
+// row's first index, and selects lanes from it. So each row of 128
+// indices reads one 512-byte table row. One warp a row: each lane loads
+// its quad of indices (16 bytes), lane 0's first index names the row and
+// reaches the warp by a shuffle, each lane loads its quad of the table row
+// (one coalesced 512-byte request, from L2 after its first touch; 4-byte
+// loads where the table is not 16-byte aligned) and writes it to the
+// warp's 512-byte slot of shared memory; after __syncwarp each lane reads
+// its four lanes there and stores its quad of outputs (16 bytes). The
+// grid's warps stride over the rows, the next row's indices loaded before
+// the current row's selects and stores. No cluster and no stage of the
+// whole table: the table's bytes per index are 4 / 128 of an index's.
+// (Measured on the card at M = 12500: a select by 16 shuffles of the row's
+// quads, with no shared memory, and 2 or 4 rows a warp in flight were 2-15%
+// slower.)
+//
+// What bounds it: the index rows in and the outputs out (8 bytes an
+// index) from device memory; the table rows come from L2, 512 bytes for
+// 128 indices. `cycles` (optional, 3 int64) receives warp 0 of block 0's
+// load span (from the top of each row to its table row in shared memory)
+// and select span (to its stores issued), summed over its rows, in
+// clock64 cycles, and the blocks launched.
+constexpr int V1_THREADS = 256;
+constexpr int V1_WARPS = V1_THREADS / 32;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(V1_THREADS)
 take2d_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
-              int4* __restrict__ out, int64_t quads) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < quads;
-       q += stride) {
-    const int4 j = idx[q];
-    out[q] = make_int4(lookup(tab, j.x), lookup(tab, j.y), lookup(tab, j.z),
-                       lookup(tab, j.w));
+              int4* __restrict__ out, long long* __restrict__ cycles, int m) {
+  __shared__ __align__(16) int4 stage[V1_WARPS][QUADS_PER_ROW];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool vec = (reinterpret_cast<uintptr_t>(tab) & 15) == 0;
+  const bool timed = cycles != nullptr && blockIdx.x == 0 && warp == 0;
+  const int warps = gridDim.x * V1_WARPS;
+  const int* s = reinterpret_cast<const int*>(stage[warp]);
+  long long load = 0, select = 0;
+  int i = blockIdx.x * V1_WARPS + warp;  // warp-uniform
+  int4 j = i < m ? __ldg(idx + (int64_t)i * QUADS_PER_ROW + lane)
+                 : make_int4(0, 0, 0, 0);
+  for (; i < m; i += warps) {
+    const long long t0 = timed ? clock64() : 0;
+    const int r = __shfl_sync(0xffffffffu, j.x, 0) >> 7;
+    const int* p = tab + (int64_t)r * LANES + 4 * lane;
+    const int4 row =
+        vec ? __ldg(reinterpret_cast<const int4*>(p))
+            : make_int4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+    const int ni = i + warps;
+    const int4 next = ni < m ? __ldg(idx + (int64_t)ni * QUADS_PER_ROW + lane)
+                             : make_int4(0, 0, 0, 0);
+    stage[warp][lane] = row;
+    __syncwarp();
+    const long long t1 = timed ? clock64() : 0;
+    out[(int64_t)i * QUADS_PER_ROW + lane] =
+        make_int4(s[j.x & (LANES - 1)], s[j.y & (LANES - 1)],
+                  s[j.z & (LANES - 1)], s[j.w & (LANES - 1)]);
+    __syncwarp();  // before the next row overwrites the slot
+    j = next;
+    if (timed) {
+      load += t1 - t0;
+      select += clock64() - t1;
+    }
+  }
+  if (timed && lane == 0) {
+    cycles[0] = load;
+    cycles[1] = select;
+    cycles[2] = gridDim.x;
   }
 }
 
@@ -688,326 +739,6 @@ take_axis0_axis1_shuffle_kernel(const int* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
-// The routed table (C1). The cluster-resident table of C2 reads another
-// block's entry by a random 4-byte ld.shared::cluster, which the probe
-// measures at ~0.28 reads an SM a cycle on this card; C1's first design
-// reads from L2, where each random 4-byte read costs a 32-byte sector.
-// Here every table read is a local ld.shared: each index is sent to the
-// block that holds its entry, which looks it up and sends the value back,
-// and only contiguous runs of 16-byte quads cross the cluster.
-//
-// A persistent grid of clusters of k blocks (k <= 8) of ROUTE_THREADS
-// threads, from the wrapper's route_plan; block r of each cluster holds
-// entries [r slice, (r + 1) slice) of the flat table. Each block takes an
-// equal share of E, ceil(E / blocks) consecutive indices (the last blocks
-// the ragged rest, maybe none), in `rounds` rounds of `chunk` <= `tile`
-// indices; every block runs the same rounds, empty ones too, so that no
-// block waits at a cluster barrier that another never reaches. A round t:
-//   route  load the chunk (coalesced 4-byte loads, U = tile / ROUTE_THREADS
-//          indices a thread), owner r = j / slice by a multiply-shift,
-//          slot in r's bucket by one shared atomic per owner and warp (the
-//          warp's lanes with the same owner found by k ballots); a warp
-//          lays out the bucket starts (multiples of 4) and sends each owner
-//          this block's count; each index's offset j - r slice goes into
-//          `sorted` at its bucket's start plus its slot.
-//   push   each bucket but the block's own goes to its owner's inbox, in
-//          the region kept for this sender, as 16-byte st.shared::cluster
-//          stores of consecutive quads.
-//   serve  (after a cluster barrier) each owner replaces every entry of
-//          its inbox regions, and of its own bucket in `sorted`, by its
-//          slice's entry: local ld.shared.
-//   pull   (after a cluster barrier) each block reads its buckets back
-//          from the owners' inboxes as 16-byte ld.shared::cluster loads of
-//          consecutive quads into `sorted`.
-//   store  each thread takes its indices' values from `sorted` by the
-//          bucket and slot it kept in registers, and stores them in index
-//          order (coalesced).
-// Inboxes and `sorted` are double-buffered by round parity, so that pull
-// and store of round t and route and push of round t + 1 share one phase
-// between barriers: two cluster barriers a round. An inbox region holds a
-// whole tile, so a skewed stream (all indices on one owner) fits.
-//
-// Layout of a block's dynamic shared memory: the mbarrier (16 bytes), its
-// slice (`slice` entries), the inboxes (2 x (k - 1) regions of `tile`
-// entries), `sorted` (2 x (tile + 4 k) entries), then RouteTail. Staging is
-// one bulk copy of the slice (its last < 4 entries, or all of it where the
-// table is not 16-byte aligned, by plain loads), which runs while the
-// first round is routed. `cycles` (optional, ROUTE_SPANS int64) receives
-// from block 0 of cluster 0, in clock64 cycles of its thread 0 (each span
-// includes that thread's waits at block barriers within it): [0] launch to
-// the slice staged, [1] the wait for it, [2] route, [3] push, [4] cluster
-// barriers, [5] serve, [6] pull, [7] store, [8] the whole kernel; then [9]
-// clusters launched, [10] rounds, [11] bytes the block pushed (and pulled
-// back) across the cluster.
-//
-// What bounds it: staging (clusters x 4 n bytes from L2), the indices and
-// outputs once from device memory (8 bytes an index), and the cluster
-// network, which carries (k - 1) / k of the indices there and back. On
-// the card the rounds are bound by latency, not by those bytes: with one
-// block an SM and a few indices a thread, each phase is a short chain of
-// dependent shared-memory steps between block and cluster barriers, and
-// the SM waits through it; the spans in `cycles` show where (PERF.md
-// section 6).
-constexpr int ROUTE_THREADS = 1024;
-constexpr int ROUTE_SMALL = 512;  // bytes of RouteTail's slot
-constexpr int ROUTE_SPANS = 12;
-
-struct RouteTail {
-  int cnt[8];          // this round's entries for each owner (slot counter)
-  int start[2][12];    // by buffer: bucket starts in `sorted`; [k] the end
-  int mine[2][8];      // by buffer: entries this block sent each owner
-  int recv[2][8];      // by buffer: entries received, by sender region
-  long long span[16];  // block 0's spans (slots of `cycles`)
-};
-static_assert(sizeof(RouteTail) <= ROUTE_SMALL, "RouteTail outgrew its slot");
-
-// sender s's inbox region in owner r != s
-__device__ __forceinline__ unsigned region(unsigned s, unsigned r) {
-  return s < r ? s : s - 1;
-}
-
-// the bucket that holds entry `at` of `sorted`: the last b whose start is
-// at most `at` (an empty bucket starts where the next one does)
-__device__ __forceinline__ unsigned bucket_of(const int* start, unsigned k,
-                                              int at) {
-  unsigned r = 0;
-  for (unsigned b = 1; b < k; ++b) r += start[b] <= at;
-  return r;
-}
-
-__device__ __forceinline__ void dsmem_store(uint32_t addr, unsigned rank,
-                                            int v) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 a;\n"
-      "mapa.shared::cluster.u32 a, %0, %1;\n"
-      "st.shared::cluster.u32 [a], %2;\n"
-      "}\n" ::"r"(addr),
-      "r"(rank), "r"(v)
-      : "memory");
-}
-
-__device__ __forceinline__ void dsmem_store4(uint32_t addr, unsigned rank,
-                                             int4 v) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 a;\n"
-      "mapa.shared::cluster.u32 a, %0, %1;\n"
-      "st.shared::cluster.v4.u32 [a], {%2, %3, %4, %5};\n"
-      "}\n" ::"r"(addr),
-      "r"(rank), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-      : "memory");
-}
-
-__device__ __forceinline__ int4 dsmem_load4(uint32_t addr, unsigned rank) {
-  int4 v;
-  asm volatile(
-      "{\n"
-      ".reg .b32 a;\n"
-      "mapa.shared::cluster.u32 a, %4, %5;\n"
-      "ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [a];\n"
-      "}\n"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "r"(addr), "r"(rank)
-      : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-template <int U>
-__global__ void __launch_bounds__(ROUTE_THREADS, 1)
-take_routed_cluster_kernel(const int* __restrict__ table,
-                           const int* __restrict__ idx, int* __restrict__ out,
-                           long long* __restrict__ cycles, int n, int slice,
-                           unsigned long long magic, int64_t e, int tile) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long t0 = clock64();
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned k = cluster.num_blocks(), s = cluster.block_rank();
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  int* tab = reinterpret_cast<int*>(smem + BARRIER_BYTES);
-  int* inbox = tab + slice;
-  const int width = tile + 4 * static_cast<int>(k);  // a buffer of `sorted`
-  int* sorted = inbox + 2 * (k - 1) * tile;
-  RouteTail* tl = reinterpret_cast<RouteTail*>(sorted + 2 * width);
-  const bool spans = cycles != nullptr && blockIdx.x == 0 && tid == 0;
-  long long mark = t0;
-  auto lap = [&](int slot) {
-    if (spans) {
-      const long long now = clock64();
-      tl->span[slot] += now - mark;
-      mark = now;
-    }
-  };
-
-  if (tid < 8) tl->cnt[tid] = 0;
-  if (tid < 16) tl->span[tid] = 0;
-  stage_slice(smem, table, n, slice, s);
-  cluster_arrive();  // this block has started; its shared memory exists
-
-  // the block's share of E, in `rounds` rounds of `chunk` indices
-  const int64_t share = (e + gridDim.x - 1) / gridDim.x;
-  const int rounds = static_cast<int>((share + tile - 1) / tile);
-  const int chunk = static_cast<int>((share + rounds - 1) / rounds);
-  const int64_t lo = (int64_t)blockIdx.x * share;
-  const int64_t hi = lo + share < e ? lo + share : e;
-  int j[U];   // a round's indices, -1 past its end
-  int rt[U];  // (owner << 16) | slot of each, -1 past the end
-
-  auto load = [&](int t) {
-    const int64_t base = lo + (int64_t)t * chunk;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = tid + u * ROUTE_THREADS;
-      j[u] = p < chunk && base + p < hi ? __ldg(idx + base + p) : -1;
-    }
-  };
-  // shared address of entry `at` of `sorted` in owner r's inbox region
-  auto inbox_at = [&](int q, unsigned r, int at) {
-    return smem_u32(inbox + (q * (k - 1) + region(s, r)) * tile + at -
-                    tl->start[q][r]);
-  };
-  auto route = [&](int t) {
-    const int q = t & 1;
-    int* sq = sorted + q * width;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool live = j[u] >= 0;
-      const unsigned r =
-          live ? static_cast<unsigned>(((unsigned long long)j[u] * magic) >>
-                                       40)
-               : 8u;
-      unsigned same = 0;
-      for (unsigned b = 0; b < k; ++b) {
-        const unsigned ballot = __ballot_sync(FULL_MASK, r == b);
-        if (r == b) same = ballot;
-      }
-      const int leader = live ? __ffs(same) - 1 : lane;
-      int base = 0;
-      if (live && lane == leader) base = atomicAdd(&tl->cnt[r], __popc(same));
-      base = __shfl_sync(FULL_MASK, base, leader);
-      rt[u] = live ? static_cast<int>(
-                         (r << 16) | (base + __popc(same & ((1u << lane) - 1))))
-                   : -1;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int c = lane < static_cast<int>(k) ? tl->cnt[lane] : 0;
-      const int c4 = (c + 3) & ~3;
-      int incl = c4;
-#pragma unroll
-      for (int d = 1; d < 32; d *= 2) {
-        const int o = __shfl_up_sync(FULL_MASK, incl, d);
-        if (lane >= d) incl += o;
-      }
-      if (lane <= static_cast<int>(k)) tl->start[q][lane] = incl - c4;
-      if (lane < static_cast<int>(k)) {
-        tl->mine[q][lane] = c;
-        tl->cnt[lane] = 0;
-        if (lane != static_cast<int>(s))
-          dsmem_store(smem_u32(&tl->recv[q][region(s, lane)]), lane, c);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (rt[u] >= 0) {
-        const unsigned r = static_cast<unsigned>(rt[u]) >> 16;
-        sq[tl->start[q][r] + (rt[u] & 0xffff)] =
-            j[u] - static_cast<int>(r) * slice;
-      }
-    __syncthreads();
-    lap(2);
-    const int quads = tl->start[q][k] / 4;
-    for (int qi = tid; qi < quads; qi += ROUTE_THREADS) {
-      const unsigned r = bucket_of(tl->start[q], k, 4 * qi);
-      if (r != s)
-        dsmem_store4(inbox_at(q, r, 4 * qi), r,
-                     reinterpret_cast<const int4*>(sq)[qi]);
-    }
-    if (spans)
-      tl->span[11] += 4 * (tl->start[q][k] - ((tl->mine[q][s] + 3) & ~3));
-    lap(3);
-  };
-  auto serve = [&](int t) {
-    const int q = t & 1;
-    for (unsigned g = 0; g + 1 < k; ++g) {
-      int* box = inbox + (q * (k - 1) + g) * tile;
-      const int c = tl->recv[q][g];
-      for (int i = tid; i < c; i += ROUTE_THREADS) box[i] = tab[box[i]];
-    }
-    int* own = sorted + q * width + tl->start[q][s];
-    const int c = tl->mine[q][s];
-    for (int i = tid; i < c; i += ROUTE_THREADS) own[i] = tab[own[i]];
-    lap(5);
-  };
-  auto pull_store = [&](int t) {
-    const int q = t & 1;
-    int* sq = sorted + q * width;
-    const int quads = tl->start[q][k] / 4;
-    for (int qi = tid; qi < quads; qi += ROUTE_THREADS) {
-      const unsigned r = bucket_of(tl->start[q], k, 4 * qi);
-      if (r != s)
-        reinterpret_cast<int4*>(sq)[qi] = dsmem_load4(inbox_at(q, r, 4 * qi),
-                                                      r);
-    }
-    __syncthreads();
-    lap(6);
-    const int64_t base = lo + (int64_t)t * chunk;
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (rt[u] >= 0) {
-        const unsigned r = static_cast<unsigned>(rt[u]) >> 16;
-        out[base + tid + u * ROUTE_THREADS] =
-            sq[tl->start[q][r] + (rt[u] & 0xffff)];
-      }
-    lap(7);
-  };
-  auto sync_cluster = [&]() {
-    cluster.sync();
-    lap(4);
-  };
-
-  load(0);
-  cluster_wait();  // every block of the cluster has started
-  lap(4);
-  route(0);
-  if (tid == 0) {
-    mbarrier_wait(reinterpret_cast<uint64_t*>(smem), 0);
-    if (spans) tl->span[0] = clock64() - t0;
-  }
-  lap(1);
-  sync_cluster();  // every slice staged, every bucket of round 0 pushed
-  serve(0);
-  sync_cluster();
-  for (int t = 0; t < rounds; ++t) {
-    const bool more = t + 1 < rounds;
-    if (more) load(t + 1);
-    pull_store(t);
-    if (more) route(t + 1);
-    sync_cluster();  // round t pulled (its inboxes free); t + 1 pushed
-    if (more) {
-      serve(t + 1);
-      sync_cluster();
-    }
-  }
-  if (spans) {
-    for (int i = 0; i < 8; ++i) cycles[i] = tl->span[i];
-    cycles[8] = clock64() - t0;
-    cycles[9] = gridDim.x / k;
-    cycles[10] = rounds;
-    cycles[11] = tl->span[11];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // V2. out[i, j] = tab[idx[i, j] / 128, j]. Lane j only ever reads column j,
 // so the columns cut the table into parts that need no cluster: a block
 // owns a group of C columns (a slab of R x C entries, R = nt / 128 rows,
@@ -1147,6 +878,26 @@ int clusters_held(const void* kernel, const cudaLaunchConfig_t& cfg,
   return 0;
 }
 
+// The current device's SM count: cudaDevAttrMultiProcessorCount once a
+// device, then from the cache.
+int sm_count(int* sms) {
+  static std::mutex mu;
+  static std::vector<std::pair<int, int>> seen;  // (device, SMs)
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : seen)
+    if (d.first == device) {
+      *sms = d.second;
+      return 0;
+    }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seen.emplace_back(device, *sms);
+  return 0;
+}
+
 // Launch `kernel` as persistent clusters of `blocks` blocks of `threads`
 // threads with `smem` bytes of dynamic shared memory each: as many
 // clusters as the card holds at once (`clusters_held`), at most `most`.
@@ -1185,38 +936,23 @@ inline bool plan_holds(int nt, int blocks, int slice, int smem) {
          BARRIER_BYTES + 4 * (int64_t)slice <= smem;
 }
 
-// the routed plan: slices that cover the table, a tile of 1, 2 or 4
-// indices a thread, and room for the slice, inboxes, `sorted` and the tail
-inline bool route_holds(int n, int blocks, int slice, int tile, int smem) {
-  return blocks >= 1 && blocks <= 8 && slice % 4 == 0 &&
-         (int64_t)blocks * slice >= n &&
-         (tile == ROUTE_THREADS || tile == 2 * ROUTE_THREADS ||
-          tile == 4 * ROUTE_THREADS) &&
-         BARRIER_BYTES + 4 * (int64_t)slice +
-                 8 * (int64_t)(blocks - 1) * tile +
-                 8 * (int64_t)(tile + 4 * blocks) + ROUTE_SMALL <=
-             smem;
-}
-
 // V2's grid: `groups` column groups, each on at most the SMs it gets (one
 // block an SM) and on no more blocks than it has work for
 template <int C>
 int launch_slab(const int* tab, const int* idx, int* out, long long* cycles,
                 int rows, int m, int smem, cudaStream_t stream) {
   constexpr int GROUPS = LANES / C;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
   const int per_pass = SLAB_WARPS * (32 / C);
   int nb = sms / GROUPS;
   if (nb > (m + per_pass - 1) / per_pass) nb = (m + per_pass - 1) / per_pass;
   if (nb < 1) nb = 1;
-  err = cudaFuncSetAttribute(take_axis0_slab_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      take_axis0_slab_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem));
+  if (err != 0) return err;
   take_axis0_slab_kernel<C><<<nb * GROUPS, SLAB_THREADS, smem, stream>>>(
       tab, idx, out, cycles, rows, m);
   return last_error();
@@ -1229,38 +965,8 @@ int launch_slab(const int* tab, const int* idx, int* out, long long* cycles,
 // success).
 extern "C" {
 
-int access_take(const void* table, const void* idx, void* out, void* cycles,
-                int n, int e, int blocks, int slice, int tile, int smem,
+int access_take(const void* table, const void* idx, void* out, int e,
                 void* stream) {
-  if (e <= 0) return 0;
-  if (!route_holds(n, blocks, slice, tile, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t per_cluster = (int64_t)blocks * tile;
-  const int64_t most = (e + per_cluster - 1) / per_cluster;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* t = static_cast<const int*>(table);
-  const int* i = static_cast<const int*>(idx);
-  int* o = static_cast<int*>(out);
-  long long* c = static_cast<long long*>(cycles);
-  const unsigned long long magic = div_magic(slice);
-  switch (tile / ROUTE_THREADS) {
-    case 1:
-      return launch_clusters(take_routed_cluster_kernel<1>, ROUTE_THREADS,
-                             blocks, smem, most, s, t, i, o, c, n, slice,
-                             magic, (int64_t)e, tile);
-    case 2:
-      return launch_clusters(take_routed_cluster_kernel<2>, ROUTE_THREADS,
-                             blocks, smem, most, s, t, i, o, c, n, slice,
-                             magic, (int64_t)e, tile);
-    default:
-      return launch_clusters(take_routed_cluster_kernel<4>, ROUTE_THREADS,
-                             blocks, smem, most, s, t, i, o, c, n, slice,
-                             magic, (int64_t)e, tile);
-  }
-}
-
-int access_take_l2(const void* table, const void* idx, void* out, int e,
-                   void* stream) {
   if (e <= 0) return 0;
   take_kernel<<<grid_for(e), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(idx),
@@ -1287,11 +993,9 @@ int access_take_two_level(const void* table, const void* idx, void* out,
 int access_take_two_level_chunks(const void* table, const void* idx,
                                  void* out, int nt, int e, void* stream) {
   if (e <= 0 || nt <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
   const int chunks = (nt + MAX_CHUNK - 1) / MAX_CHUNK;
   const int chunk = (((nt + chunks - 1) / chunks) + 3) / 4 * 4;  // <= MAX_CHUNK
   // one wave: a block of this size has an SM to itself
@@ -1300,10 +1004,10 @@ int access_take_two_level_chunks(const void* table, const void* idx,
   if (ranges > most) ranges = most;
   const int64_t range = ((int64_t)e + ranges - 1) / ranges;
   const size_t bytes = sizeof(int) * (size_t)chunk;
-  err = cudaFuncSetAttribute(take_two_level_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      take_two_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+  if (err != 0) return err;
   take_two_level_kernel<<<dim3((unsigned)ranges, (unsigned)chunks),
                           STAGE_THREADS, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
@@ -1395,14 +1099,19 @@ int access_sm_clock_khz(int device, int* khz) {
       cudaDeviceGetAttribute(khz, cudaDevAttrClockRate, device));
 }
 
-int access_take2d(const void* tab, const void* idx, void* out, int m,
-                  void* stream) {
+int access_take2d(const void* tab, const void* idx, void* out, void* cycles,
+                  int m, void* stream) {
   if (m <= 0) return 0;
-  const int64_t quads = (int64_t)m * QUADS_PER_ROW;
-  take2d_kernel<<<grid_for(quads), THREADS, 0,
+  // one wave of blocks at most (2048 threads an SM), no more than the rows
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  const int need = (m + V1_WARPS - 1) / V1_WARPS;
+  const int wave = sms * (2048 / V1_THREADS);
+  take2d_kernel<<<need < wave ? need : wave, V1_THREADS, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tab), static_cast<const int4*>(idx),
-      static_cast<int4*>(out), quads);
+      static_cast<int4*>(out), static_cast<long long*>(cycles), m);
   return last_error();
 }
 

@@ -10,20 +10,22 @@ inside `main()` of `tools/probe_access.py` (C1 `pallas_take` :139, C2
 is on this card. `rlap_tpu_torch/bench/probe_access.py` is the entry point
 that times them beside torch's own gathers and scatters.
 
-Six probes were redesigned for Hopper. C3 (`take_scalar`) stages its
+Seven probes were redesigned for Hopper. C3 (`take_scalar`) stages its
 table in the shared memory of a thread-block cluster and walks it with one
 thread; C4 (`scatter_min`) merges equal indices in registers and across
 the warp before its atomics and overlaps its fill. C2 (`take_two_level`)
 and V4 (`take_axis0_axis1`) launch persistent clusters, each of which
 holds the whole table in equal slices of its blocks' shared memory
-(`table_plan`) and serves its share of the indices from there. C1
-(`take`) holds the table the same way but sends each index to the block
-that holds its entry and the value back, so that every table read is the
-owner's own shared memory (`route_plan`). V2 (`take_axis0`) reads column j
+(`table_plan`) and serves its share of the indices from there. C1 (`take`)
+reads its table from L2: a design that held the table in a cluster and
+routed each index to the block holding its entry took twice its time on
+every input measured, and was removed. V2 (`take_axis0`) reads column j
 for lane j only, so each block holds a slab of whole columns and serves
-their reads with no cluster (`slab_plan`). Their first designs stay as
-previous variants, so that one run compares both: `take_l2` (table reads
-from L2), `take_two_level_chunks` (the table staged in per-block chunks),
+their reads with no cluster (`slab_plan`). V1 (`take2d`) computes what
+the tool's kernel `k_v1` computes (`take2d_plain`): one table row for
+each row of 128 indices, read whole by a warp, its lanes selected inside
+the warp. The previous designs stay, so that one run compares both:
+`take_two_level_chunks` (the table staged in per-block chunks),
 `take_scalar_l2` (one thread against L2), `scatter_min_atomic` (one
 atomicMin an update after a separate fill), `take_axis0_l2` and
 `take_axis0_axis1_l2` (table reads from L2).
@@ -41,14 +43,13 @@ blocks' shared memory holds (`scalar_plan`: 456,672 entries beside 8192
 indices), both 16-byte aligned for the bulk copies. `take_two_level` and
 `take_axis0_axis1` take a table that `CLUSTER_MAX` blocks hold
 (`table_plan`: 464,768 entries), 16-byte aligned, and raise `ValueError`
-beyond it; `take` a table that `CLUSTER_MAX` blocks hold beside their
-inboxes (`route_plan`: 332,256 entries at tiles of 1024 indices), and
-`take_axis0` one whose slabs of 4 columns fit a block (`slab_plan`:
-1,859,584 entries), both at any offset; their previous designs take
-any size. `take` and `take_two_level` take indices at any offset (the
-latter's output shares it), `take_axis0` index tiles at any offset,
-`take_axis0_axis1` 16-byte aligned tiles. `scatter_min` takes
-indices and values that lie at the same offset from a 16-byte boundary
+beyond it; `take_axis0` one whose slabs of 4 columns fit a block
+(`slab_plan`: 1,859,584 entries), at any offset; `take` and the other
+designs take any size. `take` and `take_two_level` take indices at any
+offset (the last one's output shares it), `take_axis0` index tiles
+at any offset, the other 2-D kernels 16-byte aligned tiles.
+`scatter_min` takes indices and values that lie at the same offset from
+a 16-byte boundary
 (views at any offset). The wrappers check this for CPU tensors too, so
 that both devices take the same inputs.
 """
@@ -76,25 +77,14 @@ BARRIER_BYTES = 16  # the mbarrier's slot at the head of a block's stage
 # the cluster size of C2 and V4 where the table allows it: the fastest of
 # k = 2, 4, 8 for both at n=100000 on the card (PERF.md section 6)
 CLUSTER_DEFAULT = 2
-# C1's routed table: blocks of ROUTE_THREADS threads take tiles of 1, 2 or
-# 4 indices a thread; the tail of a block's stage holds its counters and
-# spans. ROUTE_BLOCKS and ROUTE_TILE are the cluster size and tile where
-# the table allows them: the fastest of the sweep at n=100000 on the card
-# (PERF.md section 6).
-ROUTE_THREADS = 1024
-ROUTE_TILES = (1024, 2048, 4096)
-ROUTE_SMALL = 512
-ROUTE_SPANS = 12  # entries of C1's `cycles`
-ROUTE_BLOCKS = 4
-ROUTE_TILE = 4096
 # V2's column slabs: the widths a block may own, and the default
 SLAB_COLS = (32, 16, 8, 4)
 SLAB_DEFAULT = 32
 KERNELS = ("take", "take_two_level", "take_scalar", "scatter_min", "take2d",
            "take_axis0", "take_axis1", "take_axis0_axis1")
-# the first designs of C2, C3, C4, V4, C1 and V2, kept to compare with
+# the previous designs of C2, C3, C4, V4 and V2, kept to compare with
 PREVIOUS = ("take_two_level_chunks", "take_scalar_l2", "scatter_min_atomic",
-            "take_axis0_axis1_l2", "take_l2", "take_axis0_l2")
+            "take_axis0_axis1_l2", "take_axis0_l2")
 NAMES = KERNELS + PREVIOUS
 
 launch_counts = {name: 0 for name in NAMES}
@@ -188,65 +178,6 @@ def table_plan(nt: int, blocks: Optional[int] = None) -> TablePlan:
     return TablePlan(blocks, *_table_smem(nt, blocks))
 
 
-class RoutePlan(NamedTuple):
-    """How C1 lays an n-entry table over a cluster of `blocks` blocks:
-    block r holds entries [r slice, (r + 1) slice); indices go through in
-    rounds of at most `tile`; `smem` is each block's dynamic shared memory
-    in bytes (barrier, slice, inboxes, sorted buckets, counters)."""
-    blocks: int
-    slice: int
-    tile: int
-    smem: int
-
-
-def _route_smem(n: int, blocks: int, tile: int) -> Tuple[int, int]:
-    slice_ = _round_up(-(-n // blocks), 4)
-    return slice_, (BARRIER_BYTES + 4 * slice_ + 8 * (blocks - 1) * tile
-                    + 8 * (tile + 4 * blocks) + ROUTE_SMALL)
-
-
-def route_fits(n: int, blocks: int, tile: int) -> bool:
-    """Whether a cluster of `blocks` blocks holds n entries beside the
-    inboxes and buckets of `tile` indices."""
-    return (1 <= blocks <= CLUSTER_MAX and tile in ROUTE_TILES
-            and _route_smem(n, blocks, tile)[1] <= SMEM_BLOCK)
-
-
-def route_plan(n: int, blocks: Optional[int] = None,
-               tile: Optional[int] = None) -> RoutePlan:
-    """C1's cluster for an n-entry table: `blocks` and `tile` where given;
-    else the largest tile up to `ROUTE_TILE` at which `ROUTE_BLOCKS`
-    blocks, or the fewest more, hold the table. Raises ValueError where
-    none does."""
-    if n <= 0:
-        raise ValueError(f"route_plan: needs a table, got n={n}")
-    if tile is not None and tile not in ROUTE_TILES:
-        raise ValueError(f"route_plan: a tile is one of {ROUTE_TILES}, got "
-                         f"{tile}")
-    tiles = (tile,) if tile is not None else tuple(
-        t for t in sorted(ROUTE_TILES, reverse=True) if t <= ROUTE_TILE)
-    ks = (blocks,) if blocks is not None else range(ROUTE_BLOCKS,
-                                                    CLUSTER_MAX + 1)
-    for k, t in ((k, t) for t in tiles for k in ks):
-        if route_fits(n, k, t):
-            slice_, smem = _route_smem(n, k, t)
-            return RoutePlan(k, slice_, t, smem)
-    raise ValueError(
-        f"take: a table of {n} entries does not fit a cluster of "
-        f"{blocks if blocks is not None else 'up to ' + str(CLUSTER_MAX)} "
-        f"blocks of {SMEM_BLOCK} bytes of shared memory each beside the "
-        f"inboxes of {tiles[-1]}-index tiles; {CLUSTER_MAX} blocks at tiles "
-        f"of {min(ROUTE_TILES)} hold at most {_route_cap()} entries. The "
-        f"previous design (take_l2) takes any size")
-
-
-def _route_cap() -> int:
-    """The most entries C1's largest cluster holds, at its smallest tile."""
-    t = min(ROUTE_TILES)
-    room = SMEM_BLOCK - _route_smem(0, CLUSTER_MAX, t)[1]
-    return room // 16 * 4 * CLUSTER_MAX
-
-
 class SlabPlan(NamedTuple):
     """How V2 cuts an [R, 128] table: `groups` slabs of `cols` columns,
     each held whole by a block in `smem` bytes of shared memory."""
@@ -308,8 +239,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"access_{name}")
         fn.argtypes = [ptr, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
-    lib.access_take.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                i32, ptr]
+    lib.access_take2d.argtypes = [ptr, ptr, ptr, ptr, i32, ptr]
     lib.access_take_axis0.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                       i32, ptr]
     lib.access_take_two_level.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
@@ -415,6 +345,17 @@ def take_two_level_plain(tab2d, idx) -> torch.Tensor:
     return tab2d[rows, lanes]
 
 
+def take2d_plain(tab2d, idx2) -> torch.Tensor:
+    """out[i, j] = tab2d[idx2[i, 0] // 128, idx2[i, j] % 128], int32: what
+    V1's kernel `k_v1` (`tools/probe_access2.py:85-92`) computes. It gathers
+    the table row of every index, keeps `sel[:, 0, :]`, the row of each
+    index row's first index, and selects the lanes `idx2 % 128` from it.
+    (Its harness `try_variant`, which `main` never calls, checks it
+    against the flat gather, `take_two_level_plain`, at :74-75.)"""
+    rows, lanes = _rows_lanes(idx2)
+    return torch.take_along_dim(tab2d[rows[:, 0]], lanes, 1)
+
+
 def scatter_min_plain(idx, val, size: int) -> torch.Tensor:
     """out = full(size, 2**30); out[idx[e]] = min(out[idx[e]], val[e])."""
     out = torch.full((size,), FILL, dtype=torch.int32, device=idx.device)
@@ -445,37 +386,14 @@ def take_axis0_axis1_plain(tab2d, idx2) -> torch.Tensor:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def take(table: torch.Tensor, idx: torch.Tensor,
-         blocks: Optional[int] = None, tile: Optional[int] = None,
-         cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """C1: the lookup with each index sent to the block of a cluster that
-    holds its entry, which serves it from its own shared memory
-    (`route_plan(n, blocks, tile)`); table and indices at any offset, any
-    E. On the card, an int64 `cycles` of `ROUTE_SPANS` entries receives
-    cluster 0's phase spans in SM cycles (staged at, staging wait, route,
-    push, cluster barriers, serve, pull, store, whole), the clusters
-    launched, the rounds and the bytes block 0 pushed across the
-    cluster."""
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """C1: the lookup with the table served from L2; any size, table and
+    indices at any offset."""
     _check("take", table, idx, two_level=False, tiles=False)
-    cpu = _on_cpu(table, idx)
-    plan = route_plan(table.numel(), blocks, tile)
-    spans = _spans("take", cycles, cpu, table, ROUTE_SPANS)
-    if cpu:
-        return take_plain(table, idx)
-    out = torch.empty_like(idx)
-    _launch("take", (table, idx, out), spans, table.numel(), idx.numel(),
-            *plan)
-    return out
-
-
-def take_l2(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """C1's previous design: the lookup with the table served from L2; any
-    size."""
-    _check("take_l2", table, idx, two_level=False, tiles=False)
     if _on_cpu(table, idx):
         return take_plain(table, idx)
     out = torch.empty_like(idx)
-    _launch("take_l2", (table, idx, out), idx.numel())
+    _launch("take", (table, idx, out), idx.numel())
     return out
 
 
@@ -585,20 +503,32 @@ def scatter_min_atomic(idx: torch.Tensor, val: torch.Tensor,
     return out
 
 
-def _tiles(name: str, plain, tab2d, idx2) -> torch.Tensor:
+def _tiles(name: str, plain, tab2d, idx2,
+           cycles: Optional[torch.Tensor] = None,
+           spans: bool = False) -> torch.Tensor:
+    """The 2-D kernels that take 16-byte aligned index tiles and any M;
+    with `spans`, the kernel takes an optional int64 `cycles` of 3."""
     _check(name, tab2d, idx2, two_level=True, tiles=True)
-    if _on_cpu(tab2d, idx2):
+    cpu = _on_cpu(tab2d, idx2)
+    extra = (_spans(name, cycles, cpu, tab2d),) if spans else ()
+    if cpu:
         return plain(tab2d, idx2)
     out = torch.empty_like(idx2)
     if idx2.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{name}: index tiles must be 16-byte aligned")
-    _launch(name, (tab2d, idx2, out), idx2.shape[0])
+    _launch(name, (tab2d, idx2, out), *extra, idx2.shape[0])
     return out
 
 
-def take2d(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
-    """V1: the full lookup on [M, 128] index tiles; any M."""
-    return _tiles("take2d", take_two_level_plain, tab2d, idx2)
+def take2d(tab2d: torch.Tensor, idx2: torch.Tensor,
+           cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """V1: out[i, j] = tab2d[idx2[i, 0] // 128, idx2[i, j] % 128]
+    (`take2d_plain`, the tool's `k_v1`) on [M, 128] index tiles, one warp
+    reading each index row's table row whole and selecting its lanes; any
+    M. On the card, an int64 `cycles` of 3 entries receives warp 0 of
+    block 0's load and select spans in SM cycles and the blocks
+    launched."""
+    return _tiles("take2d", take2d_plain, tab2d, idx2, cycles, spans=True)
 
 
 def take_axis0(tab2d: torch.Tensor, idx2: torch.Tensor,

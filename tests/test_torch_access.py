@@ -1,8 +1,11 @@
 """The eight access probes' CPU path against the `jax.numpy` expressions
 that the TPU tools use as their own references (`tools/probe_access.py`
-:156, :229, :269; `tools/probe_access2.py` :74, :121-124, :163, and the two
-`take_along_axis` calls of `k_v4` run outside Pallas). The Pallas calls
-themselves name `pltpu.VMEM` inside `main()` and cannot run on the CPU.
+:156, :229, :269; `tools/probe_access2.py` :121-124, :163, and the two
+`take_along_axis` calls of `k_v4` run outside Pallas). The tools' Pallas
+calls name `pltpu.VMEM` inside `main()` and cannot run on the CPU. V1 is
+held to what its kernel `k_v1` computes (`tools/probe_access2.py:85-92`):
+its body as a `jax.numpy` expression, and a copy of it run through
+`pl.pallas_call(interpret=True)` without `memory_space`.
 Integers: exact equality. Shapes: n = 1000 (not a multiple of 128) with
 E = 4096 and with a ragged E = 12345, M = 97 index tiles; the scatter-mins
 also on hub-heavy streams (`tests/test_torch_access_cases.py`: sorted runs of
@@ -10,13 +13,16 @@ one index up to 3000 long, E not a multiple of 4, E < 32, one index only,
 views one element into their storage). Beside them, what the redesigned
 C3 and C4 compute in Python: the cluster plan of `take_scalar`, the
 vector split of `scatter_min`, the atomics its merge leaves, and the
-inputs both wrappers refuse."""
+inputs both wrappers refuse; and the steps of the V1 and V2 kernels,
+emulated in numpy."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import test_torch_access_cases as cases
+from jax.experimental import pallas as pl
 
 from rlap_tpu_torch.bench import probe_access as P
 from rlap_tpu_torch.ops import access as A
@@ -61,6 +67,30 @@ def test_take_matches_jnp(e, m):
           jnp.asarray(d["table"])[jnp.asarray(d["idx"])])
 
 
+@pytest.mark.parametrize("skip", [1, 2, 3])
+@pytest.mark.parametrize("e,m", SHAPES)
+def test_take_on_views_matches_jnp(e, m, skip):
+    """C1 takes its table and its indices at any offset from a 16-byte
+    boundary."""
+    d = _inputs(e, m, 18)
+    idx = d["idx"] % (N - skip)
+    table, view = _t(d["table"])[skip:], _t(idx)[skip:]
+    assert table.data_ptr() % 16 and view.data_ptr() % 16
+    _same(A.take(table, view),
+          jnp.asarray(d["table"][skip:])[jnp.asarray(idx[skip:])])
+
+
+@pytest.mark.parametrize("name", list(cases.STREAMS))
+def test_take_hub_streams_match_jnp(name):
+    """Runs of one index up to 3000 long, one index only, E < 32 and a
+    view one element into its storage."""
+    idx, _val = cases.hub_stream(name)
+    table = np.random.default_rng(13).integers(0, 1 << 30, cases.SIZE
+                                               ).astype(np.int32)
+    _same(A.take(torch.from_numpy(table), idx),
+          jnp.asarray(table)[jnp.asarray(idx.numpy())])
+
+
 @pytest.mark.parametrize("e,m", SHAPES)
 def test_take_two_level_matches_jnp(e, m):
     d = _inputs(e, m, 1)
@@ -86,11 +116,73 @@ def test_scatter_min_matches_jnp(e, m):
     assert int((got == A.FILL).sum()) >= NT - N  # untouched entries
 
 
+# V1's kernel as `tools/probe_access2.py:85-91` writes it
+def k_v1(tab_ref, idx_ref, out_ref):
+    idx = idx_ref[:]
+    rows = idx // 128
+    lanes = idx % 128
+    sel = jnp.take(tab_ref[:], rows.reshape(-1), axis=0)
+    sel = sel.reshape(idx.shape[0], 128, 128)  # wrong-dim guard
+    out_ref[:] = jnp.take_along_axis(sel[:, 0, :], lanes, axis=1)
+
+
+TR = 32  # index rows a grid step of the Pallas run takes
+
+
+def _k_v1_jnp(tab2d, idx2):
+    """`k_v1`'s body as a `jax.numpy` expression: the table row of every
+    index, `sel[:, 0, :]`, then the lanes."""
+    idx = jnp.asarray(idx2)
+    sel = jnp.take(jnp.asarray(tab2d), (idx // 128).reshape(-1), axis=0)
+    sel = sel.reshape(idx.shape[0], 128, 128)
+    return jnp.take_along_axis(sel[:, 0, :], idx % 128, axis=1)
+
+
+def _k_v1_interpret(tab2d, idx2):
+    """`k_v1` through `pl.pallas_call(interpret=True)` on the CPU: the
+    table whole as one (R, 128) block, the index tiles in (TR, 128)
+    blocks, as `try_variant` lays them out, but without
+    `memory_space=pltpu.VMEM`, which does not run here. A grid step takes
+    whole blocks, so M is padded with zero rows up to a multiple of TR for
+    this run only and the result cut back: M = 97 stays tested."""
+    m, r = idx2.shape[0], tab2d.shape[0]
+    mp = -(-m // TR) * TR
+    padded = np.zeros((mp, 128), np.int32)
+    padded[:m] = idx2
+    out = pl.pallas_call(
+        k_v1, out_shape=jax.ShapeDtypeStruct((mp, 128), jnp.int32),
+        grid=(mp // TR,),
+        in_specs=[pl.BlockSpec((r, 128), lambda i: (0, 0)),
+                  pl.BlockSpec((TR, 128), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((TR, 128), lambda i: (i, 0)),
+        interpret=True)(jnp.asarray(tab2d), jnp.asarray(padded))
+    return np.asarray(out)[:m]
+
+
 @pytest.mark.parametrize("e,m", SHAPES)
 def test_take2d_matches_jnp(e, m):
+    """V1 against (a) `k_v1`'s body as a `jax.numpy` expression and (b)
+    `k_v1` itself under the Pallas interpreter."""
     d = _inputs(e, m, 4)
-    ref = jnp.asarray(d["tpad"])[jnp.asarray(d["idx2"]).reshape(-1)]
-    _same(A.take2d(_t(d["tab2d"]), _t(d["idx2"])), ref.reshape(m, 128))
+    got = A.take2d(_t(d["tab2d"]), _t(d["idx2"]))
+    _same(got, _k_v1_jnp(d["tab2d"], d["idx2"]))
+    _same(got, _k_v1_interpret(d["tab2d"], d["idx2"]))
+    _same(A.take2d_plain(_t(d["tab2d"]), _t(d["idx2"])), got)
+
+
+@pytest.mark.parametrize("n,m", [(128, 1), (128, 33), (3000, 5), (3000, 64),
+                                 (100_000, 1), (100_000, 40)])
+def test_take2d_matches_k_v1_at_other_sizes(n, m):
+    """One table row, a few and the probe's 782: V1 against both forms of
+    `k_v1`."""
+    r = np.random.default_rng(19)
+    nt = -(-n // 128) * 128
+    tab2d = np.pad(r.integers(0, 1 << 30, n).astype(np.int32),
+                   (0, nt - n)).reshape(-1, 128)
+    idx2 = r.integers(0, n, (m, 128)).astype(np.int32)
+    got = A.take2d(_t(tab2d), _t(idx2))
+    _same(got, _k_v1_jnp(tab2d, idx2))
+    _same(got, _k_v1_interpret(tab2d, idx2))
 
 
 @pytest.mark.parametrize("e,m", SHAPES)
@@ -121,11 +213,15 @@ def test_take_axis0_axis1_matches_jnp(e, m):
 
 
 def test_axis0_axis1_is_not_the_full_lookup():
-    """The tool says so of V4: the value wanted lies in another lane."""
+    """The tool says so of V4: the value wanted lies in another lane. Nor
+    is V1 under `k_v1`'s function: the row is each index row's first."""
     d = _inputs(4096, 32, 8)
-    full = A.take2d(_t(d["tab2d"]), _t(d["idx2"]))
+    full = A.take_two_level(_t(d["tab2d"]),
+                            _t(d["idx2"]).reshape(-1)).view(32, 128)
+    _same(full, jnp.asarray(d["tpad"])[jnp.asarray(d["idx2"])])
     assert not torch.equal(A.take_axis0_axis1(_t(d["tab2d"]), _t(d["idx2"])),
                            full)
+    assert not torch.equal(A.take2d(_t(d["tab2d"]), _t(d["idx2"])), full)
 
 
 def test_wrappers_reject_wrong_shapes():
@@ -135,7 +231,8 @@ def test_wrappers_reject_wrong_shapes():
     for fn, args in ((A.take, (tab2d, idx)), (A.take, (table, idx2)),
                      (A.take_two_level, (table, idx)),
                      (A.take_scalar, (table, idx2)),
-                     (A.take2d, (tab2d, idx)), (A.take_axis0, (table, idx2)),
+                     (A.take2d, (tab2d, idx)),
+                     (A.take_axis0, (table, idx2)),
                      (A.take_axis1, (tab2d, idx2[:, :64])),
                      (A.take_axis0_axis1, (tab2d.reshape(-1, 64), idx2)),
                      (A.take, (table[:0], idx))):
@@ -349,73 +446,77 @@ def test_cluster_wrappers_take_their_options_on_the_cpu():
         A.take_two_level(flat[1:].view(-1, 128), idx)
 
 
-# C1's routed table and V2's column slabs: the plans, and what the kernels
+# V1's warps and V2's column slabs: the plans, and what the kernels
 # compute, emulated step by step in numpy against the tools' references.
 
-def _routed_take(table, idx, plan, clusters):
-    """C1's kernel in numpy: shares, rounds, owners by the multiply-shift,
-    counting sort into buckets at 4-aligned starts, serve from the owner's
-    slice, un-permute by the slot each index kept."""
-    e, k, sl, tile = idx.size, plan.blocks, plan.slice, plan.tile
-    magic = ((1 << 40) + sl - 1) // sl
-    share = -(-e // (clusters * k))
-    rounds = -(-share // tile)
-    chunk = -(-share // rounds)
-    assert chunk <= tile
-    out = np.full(e, -1, np.int64)
-    slices = [table[r * sl:(r + 1) * sl] for r in range(k)]
-    for b in range(clusters * k):
-        lo, hi = b * share, min((b + 1) * share, e)
-        for t in range(rounds):
-            pos = np.arange(lo + t * chunk, min(lo + (t + 1) * chunk, hi))
-            j = idx[pos].astype(np.int64)
-            r = (j * magic) >> 40
-            np.testing.assert_array_equal(r, j // sl)
-            counts = np.bincount(r, minlength=k)
-            padded = -(-counts // 4) * 4
-            start = np.concatenate([[0], np.cumsum(padded)])
-            assert start[k] <= tile + 4 * k
-            slot = np.empty(pos.size, np.int64)
-            for o in range(k):
-                mine = np.flatnonzero(r == o)
-                slot[mine] = np.arange(mine.size)
-            box = np.zeros(start[k], np.int64)
-            box[start[r] + slot] = j - r * sl  # offsets, bucket by bucket
-            for o in range(k):  # each owner serves its bucket
-                seg = slice(start[o], start[o] + counts[o])
-                box[seg] = slices[o][box[seg]]
-            out[pos] = box[start[r] + slot]
-    assert (out >= 0).all() or table.min() < 0
-    return out
+def _warp_take2d(tab2d, idx2, warps):
+    """V1's kernel in numpy: warp w takes rows w, w + warps, ..., with the
+    next row's indices loaded before the current row's select; lane 0's
+    first index names the table row, which the warp stages whole, and each
+    lane selects its quad's four lanes from the stage. Returns the output
+    and how often each row was written."""
+    m = idx2.shape[0]
+    quads = idx2.reshape(m, 32, 4)
+    out = np.full_like(idx2, -1)
+    writes = np.zeros(m, np.int64)
+    for w in range(min(warps, m)):
+        i, j = w, quads[w]
+        while i < m:
+            stage = tab2d[j[0, 0] >> 7].copy()  # lane 0's index, shuffled
+            ni = i + warps
+            nxt = quads[ni] if ni < m else None
+            out[i] = stage[j & 127].reshape(-1)
+            writes[i] += 1
+            i, j = ni, nxt
+    return out, writes
 
 
-@pytest.mark.parametrize("clusters", [1, 3])
-@pytest.mark.parametrize("blocks,tile", [(1, 1024), (2, 1024), (4, 4096),
-                                         (8, 2048)])
+def _v1_warps(m, sms=132):
+    """The warps `access_take2d` launches on an H100 SXM's 132 SMs: blocks
+    of 8 warps, one wave of them at most (8 blocks of 256 threads an SM),
+    no more than the rows need."""
+    return min(-(-m // 8), sms * 8) * 8
+
+
+@pytest.mark.parametrize("warps", [1, 3, 8, 1056])
 @pytest.mark.parametrize("e,m", SHAPES)
-def test_routed_take_emulation_matches_jnp(e, m, blocks, tile, clusters):
-    d = _inputs(e, m, 12)
-    plan = A.route_plan(N, blocks, tile)
-    _same(torch.from_numpy(_routed_take(d["table"], d["idx"], plan,
-                                        clusters).astype(np.int32)),
-          jnp.asarray(d["table"])[jnp.asarray(d["idx"])])
+def test_take2d_warp_emulation_matches_jnp(e, m, warps):
+    d = _inputs(e, m, 20)
+    got, writes = _warp_take2d(d["tab2d"], d["idx2"], warps)
+    assert (writes == 1).all()
+    _same(torch.from_numpy(got), _k_v1_jnp(d["tab2d"], d["idx2"]))
 
 
-@pytest.mark.parametrize("blocks", [2, 8])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 97, 8447, 8448, 8449, 12_500])
+def test_take2d_grid_covers_every_row_once(m):
+    """The launch's grid at one row, a block's 8 rows and their edges, one
+    whole wave (8448 warps on 132 SMs) and its edges, and the probe's
+    12500 rows: every row written once, by the warps that stride over
+    them."""
+    warps = _v1_warps(m)
+    assert warps >= min(m, 8448) and warps <= 8448
+    d = _inputs(128, 1, 21)
+    idx2 = np.random.default_rng(m).integers(0, N, (m, 128)).astype(np.int32)
+    got, writes = _warp_take2d(d["tab2d"], idx2, warps)
+    assert (writes == 1).all()
+    _same(torch.from_numpy(got), A.take2d_plain(_t(d["tab2d"]), _t(idx2)))
+
+
 @pytest.mark.parametrize("name", list(cases.STREAMS))
-def test_routed_take_emulation_on_hub_streams(name, blocks):
-    """Runs of one index up to 3000 long and a stream of one index: whole
-    chunks land on one owner and fit its inbox region."""
+def test_take2d_warp_emulation_on_hub_streams(name):
+    """The hub streams as rows of 128 (the stream repeated up to whole
+    rows): long runs put one table row under many index rows."""
     idx, _val = cases.hub_stream(name)
-    table = np.random.default_rng(13).integers(0, 1 << 30, cases.SIZE
-                                               ).astype(np.int32)
-    plan = A.route_plan(cases.SIZE, blocks, 1024)
-    got = _routed_take(table, idx.numpy(), plan, 2)
-    _same(torch.from_numpy(got.astype(np.int32)),
-          jnp.asarray(table)[jnp.asarray(idx.numpy())])
-    _same(A.take(torch.from_numpy(table), idx, blocks=blocks),
-          jnp.asarray(table)[jnp.asarray(idx.numpy())])
-
+    rows = -(-idx.numel() // 128)
+    tiles = np.resize(idx.numpy(), rows * 128).reshape(rows, 128)
+    nt = -(-cases.SIZE // 128) * 128
+    tab2d = np.random.default_rng(22).integers(
+        0, 1 << 30, (nt // 128, 128)).astype(np.int32)
+    ref = _k_v1_jnp(tab2d, tiles)
+    got, writes = _warp_take2d(tab2d, tiles, 3)
+    assert (writes == 1).all()
+    _same(torch.from_numpy(got), ref)
+    _same(A.take2d(torch.from_numpy(tab2d), torch.from_numpy(tiles)), ref)
 
 def _slab_take_axis0(tab2d, idx2, cols):
     """V2's kernel in numpy: each group's slab of `cols` columns, read at
@@ -484,58 +585,15 @@ def test_slab_plan_raises_past_slabs_of_4_columns():
         A.slab_plan(1024, cols=64)
 
 
-# n -> (blocks, tile) of the default plan: 4 blocks at tiles of 4096 up
-# to 100,720 entries, then the largest smaller tile at which 4 or more
-# blocks hold the table
-ROUTE_EDGES = {1: (4, 4096), 3001: (4, 4096), 100_000: (4, 4096),
-               100_720: (4, 4096), 100_721: (4, 2048), 166_256: (4, 2048),
-               166_257: (5, 2048), 204_764: (7, 2048), 204_765: (5, 1024),
-               332_256: (8, 1024)}
-
-
-@pytest.mark.parametrize("n,plan", sorted(ROUTE_EDGES.items()))
-def test_route_plan_covers_the_table(n, plan):
-    """Equal slices of whole quads covering the table; the owner's
-    multiply-shift is exact for every entry; what the plan reserves fits a
-    block, and one entry more would not fit the same cluster and tile."""
-    got = A.route_plan(n)
-    assert (got.blocks, got.tile) == plan
-    assert got.slice % 4 == 0 and got.blocks * got.slice >= n
-    assert (got.blocks - 1) * got.slice < n or n <= 4 * got.blocks
-    assert got.smem <= A.SMEM_BLOCK and A.route_fits(n, *plan)
-    magic = ((1 << 40) + got.slice - 1) // got.slice
-    j = np.arange(n, dtype=np.int64)
-    np.testing.assert_array_equal((j * magic) >> 40, j // got.slice)
-    if n in (100_720, 166_256, 204_764, 332_256):
-        assert not A.route_fits(n + 1, *plan)
-
-
-def test_route_plan_raises_past_a_cluster():
-    with pytest.raises(ValueError, match=r"at most 332256 entries"):
-        A.route_plan(332_257)
-    with pytest.raises(ValueError, match="take_l2"):
-        A.route_plan(100_000, blocks=2, tile=4096)
-    for bad in ({"blocks": 0}, {"blocks": 9}, {"tile": 512}):
-        with pytest.raises(ValueError):
-            A.route_plan(1000, **bad)
-    with pytest.raises(ValueError):
-        A.route_plan(0)
-
-
-def test_routed_and_slab_wrappers_take_their_options_on_the_cpu():
-    """A cluster size, tile or slab width runs the plain version on the
-    CPU; views at any offset are taken; a cycles buffer and a table past
-    the plan are refused there as on the card; the previous designs take
-    it."""
+def test_take_and_slab_wrappers_take_their_options_on_the_cpu():
+    """A slab width runs the plain version on the CPU; views at any offset
+    are taken; a cycles buffer and a table past the plan are refused there
+    as on the card; the previous design takes it, and C1 any table."""
     d = _inputs(4096, 32, 16)
     table, idx = _t(d["table"]), _t(d["idx"])
     tab2d, idx2 = _t(d["tab2d"]), _t(d["idx2"])
     ref = jnp.asarray(d["table"])[jnp.asarray(d["idx"])]
-    for blocks, tile in ((None, None), (1, 1024), (4, 4096), (8, 2048)):
-        _same(A.take(table, idx, blocks=blocks, tile=tile), ref)
     _same(A.take(table, idx[3:4001]), ref[3:4001])
-    _same(A.take(table[1:], idx[5:9] % (N - 1)),
-          jnp.asarray(d["table"][1:])[jnp.asarray(d["idx"][5:9] % (N - 1))])
     ref2 = jnp.take_along_axis(jnp.asarray(d["tab2d"]),
                                jnp.asarray(d["idx2"]) // 128, axis=0)
     for cols in (None, 32, 16, 8, 4):
@@ -543,14 +601,26 @@ def test_routed_and_slab_wrappers_take_their_options_on_the_cpu():
     flat = _t(d["idx2"]).reshape(-1)
     view = torch.cat([flat[:1], flat])[1:].view(-1, 128)
     _same(A.take_axis0(tab2d, view), ref2)
-    for fn, args in ((A.take, (table, idx)), (A.take_axis0, (tab2d, idx2))):
-        with pytest.raises(ValueError, match="card"):
-            fn(*args, cycles=torch.zeros(A.ROUTE_SPANS, dtype=torch.int64))
+    with pytest.raises(ValueError, match="card"):
+        A.take_axis0(tab2d, idx2, cycles=torch.zeros(3, dtype=torch.int64))
     big = torch.zeros(332_257, dtype=torch.int32)
-    with pytest.raises(ValueError, match="take_l2"):
-        A.take(big, idx)
-    assert torch.equal(A.take_l2(big, idx), torch.zeros_like(idx))
+    assert torch.equal(A.take(big, idx), torch.zeros_like(idx))
     wide = torch.zeros((1_859_584 // 128 + 1, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="take_axis0_l2"):
         A.take_axis0(wide, idx2)
     assert torch.equal(A.take_axis0_l2(wide, idx2), torch.zeros_like(idx2))
+
+
+def test_take2d_takes_its_options_on_the_cpu():
+    """A cycles buffer is refused on the CPU, as for the other kernels
+    with spans; ragged M and an unaligned table run the plain version."""
+    d = _inputs(12345, 97, 17)
+    tab2d, idx2 = _t(d["tab2d"]), _t(d["idx2"])
+    with pytest.raises(ValueError, match="card"):
+        A.take2d(tab2d, idx2, cycles=torch.zeros(3, dtype=torch.int64))
+    flat = torch.cat([tab2d.reshape(-1)[:1], tab2d.reshape(-1)])
+    shifted = flat[1:].view(-1, 128)
+    assert shifted.data_ptr() % 16
+    _same(A.take2d(shifted, idx2[:5]), A.take2d_plain(tab2d, idx2[:5]))
+    rows = d["idx2"][:, :1] // 128
+    _same(A.take2d(tab2d, idx2), d["tab2d"][rows, d["idx2"] % 128])

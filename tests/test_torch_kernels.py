@@ -10,14 +10,15 @@ atol 1e-6, in float32 with TF32 off; on alike rows all three kernels are
 held against float64, within 1e-4 of the largest entry (dB 2e-4 on rows
 alike to 0.003, where the rounding of its float32 coefficients reaches it
 through its column sums). The access probes are int32 and must be
-bit-equal: the eight kernels and the previous designs of C1, C2, C3, C4,
-V2 and V4 at the probes' shapes, both scatter-mins on hub-heavy streams
+bit-equal: the eight kernels and the previous designs of C2, C3, C4, V2
+and V4 at the probes' shapes, C1 and V1 on ragged and offset indices and
+unaligned tables, C1 and both scatter-mins on hub-heavy streams
 (`tests/test_torch_access_cases.py`), the cluster walk of C3 at each
 cluster size of its plan, with its cycle counts, the cluster-resident
 table of C2 and V4 at each swept cluster size, at the plan's capacity edge,
-on ragged and offset indices, with their spans, and the routed table of
-C1 and the column slabs of V2 at each swept cluster size, tile and slab
-width, on ragged, offset and hub-heavy indices, at the plans' edges.
+on ragged and offset indices, with their spans, and the column slabs of
+V2 at each slab width, on ragged, offset and hub-heavy indices, at the
+plan's edges.
 """
 
 import numpy as np
@@ -333,28 +334,18 @@ def test_cuda_two_level_take_ragged_and_offset_indices(fn, skip, e):
     assert torch.equal(got, A.take_two_level_plain(tab2d, view))
 
 
-# C1's routed table: every cluster size of the sweep and tile that hold
-# n=100000, then the edges of its plan
-ROUTE_CASES = [(k, t) for k in P.SWEEP for t in A.ROUTE_TILES
-               if A.route_fits(100_000, k, t)]
-
-
-def _route_run(n, idx, seed=0, **kw):
-    """`take` (with its spans) and `take_l2` on a fresh n-entry table by
-    `idx`, both bit-equal to the plain version; the spans."""
+def _take_run(n, idx, seed=0):
+    """C1's `take` on a fresh n-entry table by `idx`: bit-equal to the
+    plain version, one launch."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     table = torch.randint(0, 1 << 30, (n,), generator=gen, device="cuda",
                           dtype=torch.int32)
-    cyc = torch.zeros(A.ROUTE_SPANS, dtype=torch.int64, device="cuda")
     before = A.launch_counts["take"]
-    got = A.take(table, idx, cycles=cyc, **kw)
-    prev = A.take_l2(table, idx)
-    ref = A.take_plain(table, idx)
+    got = A.take(table, idx)
     torch.cuda.synchronize()
-    assert got.shape == idx.shape and torch.equal(got, ref)
-    assert torch.equal(prev, ref)
+    assert got.shape == idx.shape and torch.equal(got,
+                                                  A.take_plain(table, idx))
     assert A.launch_counts["take"] == before + 1
-    return dict(zip(P.ROUTE_SPAN_NAMES + P.ROUTE_COUNT_NAMES, cyc.tolist()))
 
 
 def _indices(n, e, seed, skip=0):
@@ -365,52 +356,18 @@ def _indices(n, e, seed, skip=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocks,tile", ROUTE_CASES)
-def test_cuda_routed_take_matches_plain(blocks, tile):
-    """C1 at n=100000, E=1.6M at each swept cluster size and tile: bit-
-    equal, with positive spans, a whole number of rounds, and block 0's
-    pushes as the routing predicts (its other owners' share of its
-    indices, in whole quads)."""
-    _needs_card()
-    spans = _route_run(100_000, _indices(100_000, 1_600_000, blocks),
-                       blocks=blocks, tile=tile)
-    assert spans["clusters"] >= 1 and spans["rounds"] >= 1
-    assert all(spans[k] > 0 for k in ("staged_at", "route", "serve",
-                                      "store", "whole"))
-    share = -(-1_600_000 // (spans["clusters"] * blocks))
-    assert spans["rounds"] == -(-share // tile)
-    assert 0 < spans["pushed_bytes"] <= 4 * (share + 3 * blocks
-                                              * spans["rounds"])
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("skip,e", [(0, 4097), (1, 4097), (2, 50_001),
                                     (3, 3), (1, 1), (1, 0), (0, 1_600_003)])
-def test_cuda_routed_take_ragged_and_offset_indices(skip, e):
-    """E not a multiple of 4 or of a tile, fewer indices than a cluster's
-    blocks, none, and index views 1-3 elements into their storage."""
+def test_cuda_take_ragged_and_offset_indices(skip, e):
+    """E not a multiple of 4 or of a block, a few indices, none, and index
+    views 1-3 elements into their storage."""
     _needs_card()
-    _route_run(100_000, _indices(100_000, e, 6, skip))
+    _take_run(100_000, _indices(100_000, e, 6, skip))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,kw", [(1000, {}), (100_001, {}),
-                                  (100_720, {}), (204_764, {}),
-                                  (332_256, {}),
-                                  (107_736, {"blocks": 2, "tile": 1024}),
-                                  (3000, {"blocks": 1, "tile": 4096})])
-def test_cuda_routed_take_at_the_plans_edges(n, kw):
-    """A small table (slices of 252 entries), one not a multiple of 4 (a
-    ragged last slice), the largest the default cluster and tile hold,
-    the largest at tiles of 2048 (7 blocks) and at 1024 (8 blocks), a
-    2-block cluster at its edge, and one block alone (no routing)."""
-    _needs_card()
-    _route_run(n, _indices(n, 300_001, 8), **kw)
-
-
-@pytest.mark.cuda
-def test_cuda_routed_take_on_an_unaligned_table():
-    """A table view one entry into its storage: staged by plain loads."""
+def test_cuda_take_on_an_unaligned_table():
+    """A table view one entry into its storage."""
     _needs_card()
     store = torch.arange(100_001, dtype=torch.int32, device="cuda") * 3
     table, idx = store[1:], _indices(100_000, 70_000, 9)
@@ -421,27 +378,85 @@ def test_cuda_routed_take_on_an_unaligned_table():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
 @pytest.mark.parametrize("stream", list(cases.STREAMS))
-def test_cuda_routed_take_hub_streams_match_plain(stream, blocks):
-    """Runs of one index up to 3000 long and one index alone: whole
-    chunks on one owner."""
+def test_cuda_take_hub_streams_match_plain(stream):
+    """Runs of one index up to 3000 long, one index alone, E < 32 and a
+    view one element into its storage."""
     _needs_card()
     idx, _val = cases.hub_stream(stream, "cuda")
-    _route_run(cases.SIZE, idx, blocks=blocks, tile=1024)
+    _take_run(cases.SIZE, idx)
 
 
 @pytest.mark.cuda
-def test_cuda_take_refuses_a_table_past_its_plan():
-    """Refused on the card, not run by the previous design."""
+@pytest.mark.parametrize("n", [332_257, 4_000_000])
+def test_cuda_take_takes_any_table(n):
+    """Tables past what a cluster's shared memory would hold: C1 reads
+    from L2 and has no plan to refuse them."""
     _needs_card()
-    idx = _indices(1000, 4096, 10)
-    big = torch.zeros(332_257, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="take_l2"):
-        A.take(big, idx)
-    with pytest.raises(ValueError):
-        A.take(big[:100_000], idx, blocks=2, tile=4096)
-    assert torch.equal(A.take_l2(big, idx), torch.zeros_like(idx))
+    _take_run(n, _indices(n, 300_001, 10))
+
+
+# V1: (nt, M, elements the tile view lies into its storage): the probes'
+# shape, a ragged M, a view one 16-byte step in
+V1_CASES = [(100_096, 12_500, 0), (1024, 97, 0), (1024, 97, 4),
+            (100_096, 1, 4), (464_896, 3001, 8)]
+
+
+def _v1_tiles(nt, m, seed, skip):
+    view = _indices(nt, m * 128, seed, skip).view(m, 128)
+    assert view.data_ptr() % 16 == 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt,m,skip", V1_CASES)
+def test_cuda_take2d_matches_plain(nt, m, skip):
+    """V1 bit-equal to `take2d_plain` in one launch, with positive load
+    and select spans and at most a wave of blocks."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(nt + m)
+    tab2d = torch.randint(0, 1 << 30, (nt // 128, 128), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    idx2 = _v1_tiles(nt, m, 14, skip)
+    cyc = torch.zeros(3, dtype=torch.int64, device="cuda")
+    before = A.launch_counts["take2d"]
+    got = A.take2d(tab2d, idx2, cycles=cyc)
+    torch.cuda.synchronize()
+    assert got.shape == idx2.shape
+    assert torch.equal(got, A.take2d_plain(tab2d, idx2))
+    assert A.launch_counts["take2d"] == before + 1
+    load, select, blocks = cyc.tolist()
+    assert load > 0 and select > 0
+    assert 1 <= blocks <= 8 * torch.cuda.get_device_properties(
+        0).multi_processor_count
+
+
+@pytest.mark.cuda
+def test_cuda_take2d_on_an_unaligned_table_and_tiles():
+    """A table view one entry into its storage (4-byte loads of its rows);
+    index tiles not 16-byte aligned are refused, not run some other
+    way."""
+    _needs_card()
+    store = torch.arange(1024 + 1, dtype=torch.int32, device="cuda") * 5
+    tab2d = store[1:].view(8, 128)
+    assert tab2d.data_ptr() % 16
+    idx2 = _v1_tiles(1024, 97, 16, 0)
+    got = A.take2d(tab2d, idx2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, A.take2d_plain(tab2d, idx2))
+    flat = _indices(1024, 97 * 128, 17, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.take2d(tab2d, flat.view(97, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip,e", [(0, 1_600_000), (1, 12_345), (3, 3),
+                                    (1, 0)])
+def test_cuda_take_matches_plain(skip, e):
+    """C1's `take` at the probe's n=100000, E=1.6M and ragged and offset
+    indices: bit-equal to `take_plain`, one launch."""
+    _needs_card()
+    _take_run(100_000, _indices(100_000, e, 18, skip))
 
 
 def _slab_run(nt, idx2, seed=0, **kw):
@@ -662,10 +677,10 @@ def test_time_stream_runs_on_the_cpu():
     table = torch.arange(cases.SIZE, dtype=torch.int32) * 7
     res = P.time_stream(table, idx, idx, val, 2)
     assert res["max_abs_err"] == {name: 0 for name in (
-        "take", "take_l2", "take_two_level", "take_two_level_chunks",
-        "take_axis0", "take_axis0_l2", "take_axis0_axis1",
-        "take_axis0_axis1_l2", "take_scalar", "take_scalar_l2",
-        "scatter_min", "scatter_min_atomic")}
+        "take", "take2d", "take_two_level",
+        "take_two_level_chunks", "take_axis0", "take_axis0_l2", "take_axis1",
+        "take_axis0_axis1", "take_axis0_axis1_l2", "take_scalar",
+        "take_scalar_l2", "scatter_min", "scatter_min_atomic")}
     assert res["scatter_min_reds"] == P.merged_reds(idx) == 183
     assert all(res[k] > 0 for k in ("scatter_min_ms", "take_scalar_ms"))
 
