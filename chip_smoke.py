@@ -77,11 +77,24 @@
 7. Bench phase, at the main path's n: `rlap_tpu_torch.bench.
    rlap_throughput.run` (edges/s of `eliminate` at t = n/2 against the
    C++ oracle on the host, built from `rlap_tpu_torch/native/oracle.cc`;
-   each call must remove n/2 nodes) and `rlap_tpu_torch.bench.epoch.run`
-   (GRACE epochs with separate and with paired rLap views, 3 timed after
-   the first), with the InfoNCE counts set to 0 just before and read just
-   after: each kernel twice an epoch in both variants, and every view must
-   remove int(0.2 n) nodes.
+   each call must remove n/2 nodes; then its speed-of-light model,
+   `rlap_tpu_torch/bench/roofline.py`: the five primitive prices measured
+   on the card at a table of n and E = the graph's directed edges, the
+   gather through C1 `take` and the scatter through C4 `scatter_min`,
+   both held bit-equal to their plain versions at E and 2E first and
+   launched on the card for every timed call; the prices must be finite
+   and positive, the model's ms over the measured call's must lie in
+   (0, 1] (the model is a floor at today's measured prices: above 1, the
+   message names the price with the largest share, to be measured again),
+   and the replay's rounds within 3 of the median of the calls'; the
+   prices, the fraction, the breakdown by category and by price, the
+   card's busy time in one traced call and the host time of the prices
+   and of the replay are printed on their own lines with the card's name
+   and power limit) and
+   `rlap_tpu_torch.bench.epoch.run` (GRACE epochs with separate and with
+   paired rLap views, 3 timed after the first), with the InfoNCE counts
+   set to 0 just before and read just after: each kernel twice an epoch
+   in both variants, and every view must remove int(0.2 n) nodes.
 8. The recipe CLI phase, through `rlap_tpu_torch.cli.run.run_one` with no
    `device=` (the synthetic stand-ins, as no dataset files are there):
    GRACE on the PUBMED stand-in (n=19717, f=500) with EdgeDroppingPR
@@ -636,38 +649,23 @@ def make_graph(n: int, f: int):
 
 
 def profiled(label: str, body, phases=(), must_hold=None) -> dict:
-    """Run `body()` once under `tracing.trace`, in a span named `label`
-    that ends with a synchronisation of the card, and read the card's work
-    in that span from the trace (and in each span of `phases` that `body`
-    annotates; work queued in one of those may run into the next). CUPTI
-    starts on the first profiled region, so a small one runs first. Fails
-    if the span holds no CUDA kernel, or no kernel whose name holds
+    """Run `body()` once under `tracing.traced` in a span named `label`
+    and read the card's work in it and in each span of `phases`. Fails if
+    the span holds no CUDA kernel, or no kernel whose name holds
     `must_hold`: a trace that lost the card must not pass."""
-    with tempfile.TemporaryDirectory() as tmp:
-        with tracing.trace(os.path.join(tmp, "warm-up")):
-            torch.ones(1 << 20, device="cuda").sum()
-            torch.cuda.synchronize()
-        with tracing.trace(tmp):
-            t = sync_s()
-            with tracing.annotate(label):
-                body()
-                torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t)
-        path = os.path.join(tmp, "trace.json")
-        res = tracing.device_time(path, label)
-        parts = {p: tracing.device_time(path, p) for p in phases}
+    res = tracing.traced(label, body, phases)
     require(res["kernels"] > 0, f"{label}: no CUDA kernel in the trace")
     if must_hold is not None:
         require(any(must_hold in op["name"] for op in res["ops"]),
                 f"{label}: no device op named *{must_hold}* in the trace")
-    return {"traced_wall_ms": wall, "span_ms": res["span_ms"],
+    return {"traced_wall_ms": res["wall_ms"], "span_ms": res["span_ms"],
             "device_busy_ms": res["device_busy_ms"],
             "device_idle_share": res["device_idle_share"],
             "device_kernels": res["kernels"],
             "top_device_ops": res["top_device_ops"],
             "phases": {p: {k: r[k] for k in ("span_ms", "device_busy_ms",
                                              "device_idle_share")}
-                       for p, r in parts.items()}}
+                       for p, r in res["phases"].items()}}
 
 
 STEP_PHASES = ("views", "forward", "loss", "backward", "adam")
@@ -771,20 +769,83 @@ def main_path(g, f: int) -> tuple:
 BENCH_EPOCHS = 3
 
 
-def bench_phase(n: int) -> dict:
+ROUNDS_SLACK = 3  # the replay's rounds against the calls' median
+
+
+def check_roofline(thr: dict, smi: str) -> None:
+    """Print `rlap_throughput`'s speed-of-light model (the prices, the
+    fraction, the breakdown by category and by price, and the card's busy
+    time in one traced call beside it) with the card's name and power
+    limit, and hold it: prices finite and positive, measured with `take`
+    and `scatter_min` bit-equal and launched on the card (the checks at E
+    and 2E, then a warm-up and `reps` calls at each size), the fraction in
+    (0, 1] and the replay's rounds within `ROUNDS_SLACK` of the measured
+    median."""
+    prices, checks = thr["prices_ns"], thr["price_checks"]
+    by_price = thr["roofline_by_price_ms"]
+    print(f"roofline prices at n={checks['n']} E={checks['e']} (ns per "
+          f"element; fixed ms a launch), {smi}: " + ", ".join(
+              f"{k} {v} ({thr['price_fixed_ms'][k]})"
+              for k, v in prices.items()), flush=True)
+    print(f"roofline: model {thr['roofline_ms']} ms against "
+          f"{thr['ms_per_call']} ms a call, fraction "
+          f"{thr['roofline_fraction']}; one traced call {thr['traced_call_ms']}"
+          f" ms, the card busy {thr['traced_call_device_busy_ms']} ms of it; "
+          f"{thr['roofline_rounds']} rounds replayed, measured "
+          f"{thr['rounds']}; {smi}", flush=True)
+    print(f"roofline breakdown (ms; entry and exit "
+          f"{thr['roofline_entry_exit_ms']}), {smi}: "
+          f"{json.dumps(thr['roofline_breakdown_ms'])}; by price (ms, "
+          f"elements): " + ", ".join(
+              f"{k} {v} ({thr['roofline_elements'][k]})"
+              for k, v in by_price.items()), flush=True)
+    print(f"roofline host time: prices {thr['prices_s']} s, replay "
+          f"{thr['replay_s']} s", flush=True)
+    require(all(math.isfinite(v) and v > 0 for v in prices.values()),
+            f"roofline prices not finite and positive: {prices}")
+    timed = 2 + 2 * (checks["reps"] + 1)
+    for kname in ("take", "scatter_min"):
+        require(checks["max_abs_err"][kname] == 0
+                and checks["launches"][kname] == timed,
+                f"roofline prices: {kname} {checks}")
+    require(thr["roofline_fraction"] > 0,
+            f"roofline_fraction {thr['roofline_fraction']} not positive")
+    top = max(by_price, key=by_price.get)
+    require(thr["roofline_fraction"] <= 1,
+            f"roofline_fraction {thr['roofline_fraction']} > 1: the call beat "
+            f"the model at today's prices, so it does some of the work for "
+            f"less than a price; the largest share is {top}'s ({by_price[top]}"
+            f" of {thr['roofline_ms']} ms at {prices[top]} ns an element, "
+            f"by price {by_price}): measure that price again from the faster "
+            f"primitive")
+    median = float(np.median(thr["rounds"]))
+    require(abs(thr["roofline_rounds"] - median) <= ROUNDS_SLACK,
+            f"replayed {thr['roofline_rounds']} rounds against measured "
+            f"{thr['rounds']}")
+
+
+def bench_phase(n: int, smi: str) -> dict:
     """The port's two benches at the main path's size, in this process:
-    `rlap_throughput.run` (each call must remove n/2 nodes) and
+    `rlap_throughput.run` (each call must remove n/2 nodes; its roofline
+    held by `check_roofline`) and
     `epoch.run` at 3 timed epochs, with the InfoNCE counts set to 0 just
     before and read just after; each kernel must run twice an epoch in
     both variants, the first epoch included, and every view must remove
     int(0.2 n) nodes. Prints both results; returns the launches of each
     variant and the single-device `eliminate`'s edges/s."""
+    t = time.perf_counter()
     thr = RT.run(n=n, device="cuda", reps=5)
+    thr_s = time.perf_counter() - t
     require(thr["removed"] == min(n // 2, n - 1) and thr["device"] ==
             torch.cuda.get_device_name(0), f"rlap_throughput: {thr}")
     print(json.dumps({"rlap_throughput": thr}), flush=True)
+    check_roofline(thr, smi)
     K.reset_launch_counts()
+    t = time.perf_counter()
     ep = EB.run(n=n, frac=FRAC, epochs=BENCH_EPOCHS, device="cuda")
+    print(f"bench phase parts: rlap_throughput {thr_s:.1f} s (its prices "
+          f"{thr['prices_s']:.1f} s, its replay {thr['replay_s']:.1f} s), "
+          f"epoch {time.perf_counter() - t:.1f} s", flush=True)
     launches = dict(K.launch_counts)
     by_variant = {v: ep[f"infonce_launches_{v}"]
                   for v in ("separate", "paired")}
@@ -1302,7 +1363,7 @@ def main(argv=None) -> int:
     del g
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    bench_launches, single_eps = bench_phase(args.n)
+    bench_launches, single_eps = bench_phase(args.n, smi)
     print(f"bench phase: {time.perf_counter() - t:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t = time.perf_counter()

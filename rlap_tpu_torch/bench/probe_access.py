@@ -62,7 +62,7 @@ import functools
 import json
 import sys
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -156,29 +156,46 @@ def _calls(inp: dict) -> Dict[str, tuple]:
     }
 
 
+def hold(name: str, kern: Callable, plain: Callable, args: tuple,
+         where: str = "") -> int:
+    """Hold kernel `name`'s wrapper `kern` against its plain version on
+    `args`: the same shape and dtype, bit-equal, and one launch counted
+    for the call on the card (none on the CPU). Returns the max abs
+    error: 0."""
+    dev = args[0].device
+    on_card = dev.type == "cuda"
+    before = A.launch_counts[name]
+    got, ref = kern(*args), plain(*args)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    launched = A.launch_counts[name] - before
+    _require(launched == int(on_card),
+             f"{name}: {launched} launches counted for one call on {dev}")
+    _require(got.shape == ref.shape and got.dtype == ref.dtype,
+             f"{name}: {got.shape} {got.dtype} against {ref.shape} "
+             f"{ref.dtype}")
+    err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
+    _require(torch.equal(got, ref),
+             f"{name}: differs from its plain version{where}, max abs err "
+             f"{err}")
+    return err
+
+
 def check(inp: dict) -> Dict[str, int]:
     """Hold each kernel and previous variant against its plain version on
-    the first draw of `inp`: bit-equal, and one launch counted per call on
-    the card (none on the CPU). Returns the max abs error per kernel: 0."""
-    errs = {}
-    on_card = inp["table"].device.type == "cuda"
-    for name, (kern, plain, args) in _calls(inp).items():
-        before = A.launch_counts[name]
-        got, ref = kern(*args[0]), plain(*args[0])
-        if on_card:
-            torch.cuda.synchronize(inp["table"].device)
-        _require(A.launch_counts[name] - before == int(on_card),
-                 f"{name}: {A.launch_counts[name] - before} launches counted "
-                 f"for one call on {inp['table'].device}")
-        _require(got.shape == ref.shape and got.dtype == ref.dtype,
-                 f"{name}: {got.shape} {got.dtype} against {ref.shape} "
-                 f"{ref.dtype}")
-        errs[name] = int((got.long() - ref.long()).abs().max()) \
-            if got.numel() else 0
-        _require(torch.equal(got, ref),
-                 f"{name}: differs from its plain version at n={inp['n']} "
-                 f"E={inp['e']} M={inp['m']}, max abs err {errs[name]}")
-    return errs
+    the first draw of `inp` (`hold`). Returns the max abs error per
+    kernel: 0."""
+    where = f" at n={inp['n']} E={inp['e']} M={inp['m']}"
+    return {name: hold(name, kern, plain, args[0], where)
+            for name, (kern, plain, args) in _calls(inp).items()}
+
+
+def rate_parts(ms: float, ms_twice: float) -> Tuple[float, float]:
+    """From a call's ms on E elements and on 2E: (t(2E) - t(E), the ms
+    that E more elements add, and 2 t(E) - t(2E), the part a launch costs
+    whatever its size: launch, staging, tail)."""
+    added = ms_twice - ms
+    return added, ms - added
 
 
 def bounds_ms(inp: dict) -> Dict[str, float]:
@@ -587,22 +604,19 @@ def read_rates(inp: dict, ms: Dict[str, float], emit) -> dict:
     twice the indices, each set followed by the next (the last by the
     first), held bit-equal first. With its time on E indices this gives
     the rate of its reads apart from what a launch costs whatever its size
-    (launch, staging, tail): E / (t(2E) - t(E)) reads a second, and
-    2 t(E) - t(2E) ms fixed."""
+    (launch, staging, tail; `rate_parts`): E / (t(2E) - t(E)) reads a
+    second, and 2 t(E) - t(2E) ms fixed."""
     calls = _calls(inp)
     out = {}
     for kname in ms:
         kern, plain, args = calls[kname]
         twice = [(a[0], torch.cat([a[1], b[1]]))
                  for a, b in zip(args, args[1:] + args[:1])]
-        _require(torch.equal(kern(*twice[0]), plain(*twice[0])),
-                 f"{kname}: differs from its plain version on twice the "
-                 f"indices")
+        hold(kname, kern, plain, twice[0], " on twice the indices")
         reads = args[0][1].numel()
         t2 = time_ms(kern, twice)
-        added = t2 - ms[kname]
-        out[kname] = {"ms": ms[kname], "ms_twice": t2,
-                      "fixed_ms": ms[kname] - added,
+        added, fixed = rate_parts(ms[kname], t2)
+        out[kname] = {"ms": ms[kname], "ms_twice": t2, "fixed_ms": fixed,
                       "reads_per_s": reads / (1e-3 * added)
                       if added > 0 else None}
         emit(f"   {kname} on {reads} and {2 * reads} indices: "

@@ -11,6 +11,8 @@
   synchronises the card before it reads the clock.
 * `device_time(path, span)`: what the card did inside one span of a
   trace: busy time, idle share and the ops that took most of it.
+* `traced(label, body)`: `body()` run once under `trace` in a span of its
+  own, read back with `device_time`.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -150,3 +153,33 @@ def device_time(path: str, span: str, top: int = 5) -> dict:
     return {"span_ms": span_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / span_ms if span_ms > 0 else 1.0,
             "kernels": kernels, "top_device_ops": ops[:top], "ops": ops}
+
+
+def traced(label: str, body: Callable, phases: Sequence[str] = ()) -> dict:
+    """Run `body()` once under `trace`, in a span named `label` that ends
+    with a synchronisation of the card (where CUDA is initialised), and
+    read the card's work in that span from the trace with `device_time`,
+    and in each span of `phases` that `body` annotates (work queued in
+    one of those may run into the next). CUPTI starts on the first
+    profiled region, so on the card a small one runs first. Returns
+    `device_time`'s result for `label` with `wall_ms` (the host's clock
+    around the span, from a synchronised card) and `phases`."""
+    on_card = torch.cuda.is_initialized()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            with trace(os.path.join(tmp, "warm-up")):
+                torch.ones(1 << 20, device="cuda").sum()
+                sync()
+        with trace(tmp):
+            sync()
+            t0 = time.perf_counter()
+            with annotate(label):
+                body()
+                sync()
+            wall = 1e3 * (time.perf_counter() - t0)
+        path = os.path.join(tmp, "trace.json")
+        res = device_time(path, label)
+        res["phases"] = {p: device_time(path, p) for p in phases}
+    res["wall_ms"] = wall
+    return res

@@ -27,6 +27,9 @@ AUG_KEYS = {"latency_ms_mean", "latency_ms_std", "edges_per_s",
             "mem_delta_bytes", "peak_hbm_bytes", "hbm_note"}
 # bench.py's JSON line
 THROUGHPUT_KEYS = {"metric", "value", "unit", "vs_baseline"}
+# bench.py's roofline keys, and the port's replay rounds, breakdown and prices
+ROOFLINE_KEYS = {"roofline_ms", "roofline_fraction", "roofline_rounds",
+                 "roofline_breakdown_ms", "prices_ns", "price_fixed_ms"}
 # EPOCH_BENCH.json, written by tools/bench_epoch.py
 EPOCH_KEYS = set(json.loads((ROOT / "EPOCH_BENCH.json").read_text()))
 
@@ -96,7 +99,7 @@ def test_rlap_throughput_entry_point_on_the_cpu(tmp_path):
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert set(out) >= THROUGHPUT_KEYS | {"ms_per_call", "rounds", "removed",
-                                          "oracle_s", "device"}
+                                          "oracle_s", "device"} | ROOFLINE_KEYS
     assert out["metric"] == "rlap_edges_per_s" and out["unit"] == "edges/s"
     assert out["removed"] == 1000 and out["device"] == "cpu"
     assert len(out["oracle_s"]) == 5 and len(out["rounds"]) == 2

@@ -18,7 +18,8 @@ cluster size of its plan, with its cycle counts, the cluster-resident
 table of C2 and V4 at each swept cluster size, at the plan's capacity edge,
 on ragged and offset indices, with their spans, and the column slabs of
 V2 at each slab width, on ragged, offset and hub-heavy indices, at the
-plan's edges.
+plan's edges. The roofline's price measurement holds C1 and C4 bit-equal
+before it times them.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 import test_torch_access_cases as cases
 
 from rlap_tpu_torch.bench import probe_access as P
+from rlap_tpu_torch.bench import roofline as RL
 from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
 
@@ -713,7 +715,8 @@ def test_cli_grace_launches_the_kernels_on_the_card(tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_rlap_throughput_bench_on_the_card():
     """`rlap_throughput.run` at n=20000 on the card: every call removes
-    n/2 nodes, and the result holds bench.py's keys and names the card."""
+    n/2 nodes, the result holds bench.py's keys and names the card, and
+    its traced call shows the card's work."""
     _needs_card()
     from rlap_tpu_torch.bench import rlap_throughput as RT
 
@@ -724,3 +727,27 @@ def test_rlap_throughput_bench_on_the_card():
     assert len(res["oracle_s"]) == 5
     assert res["device"] == torch.cuda.get_device_name(0)
     assert res["card"].startswith(res["device"])
+    assert 0 < res["roofline_fraction"] <= 1
+    assert res["roofline_ms"] == pytest.approx(res["roofline_fraction"]
+                                               * res["ms_per_call"])
+    # the traced call ran its kernels on the card
+    assert res["traced_call_kernels"] > 0
+    assert 0 < res["traced_call_device_busy_ms"] <= res["traced_call_ms"]
+
+
+@pytest.mark.cuda
+def test_cuda_measure_prices_holds_take_and_scatter_min():
+    """The roofline's prices on the card at a small E: C1 `take` and C4
+    `scatter_min` bit-equal to their plain versions at E and 2E, launched
+    for the checks and for every timed call (a warm-up and `reps` at each
+    size), and five finite, positive prices."""
+    _needs_card()
+    reps = 5
+    res = RL.measure_prices("cuda", n=100_000, e=1 << 18, reps=reps)
+    assert res["max_abs_err"] == {"take": 0, "scatter_min": 0}
+    assert res["launches"] == {"take": 2 + 2 * (reps + 1),
+                               "scatter_min": 2 + 2 * (reps + 1)}
+    assert set(res["prices_ns"]) == set(RL.PRICES)
+    assert all(np.isfinite(v) and v > 0 for v in res["prices_ns"].values())
+    assert res["device"] == torch.cuda.get_device_name(0)
+    assert res["timer"] == "cuda events"

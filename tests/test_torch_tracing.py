@@ -10,7 +10,7 @@ import torch
 
 from rlap_tpu_torch.data.synthetic import barabasi_albert
 from rlap_tpu_torch.utils.tracing import (TRACER, Timer, annotate,
-                                          device_time, trace)
+                                          device_time, trace, traced)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,3 +115,22 @@ def test_device_time_needs_one_span(tmp_path):
         device_time(str(path), "step")
     with pytest.raises(ValueError):
         device_time(str(path), "missing")
+
+
+def test_traced_reads_one_call_and_its_phases():
+    """`traced` runs its body once in a span of its own and reads the span
+    and each named phase back from the trace; on the host the card did
+    nothing in them."""
+    calls = []
+
+    def body():
+        calls.append(1)
+        with annotate("inner"):
+            torch.ones(256).sum()
+
+    res = traced("outer", body, phases=("inner",))
+    assert calls == [1]
+    assert res["span_ms"] > 0 and res["wall_ms"] > 0
+    assert res["device_busy_ms"] == 0 and res["kernels"] == 0
+    assert set(res["phases"]) == {"inner"}
+    assert 0 < res["phases"]["inner"]["span_ms"] <= res["span_ms"]
