@@ -1,0 +1,19 @@
+"""infonce_roofline (%): the loss layer's least time over its device time.
+The layer (`objectives/contrast.py` -> `ops/infonce_fused.py`) is called
+alone on the traced step's projections, forward and backward, in a span
+of its own; its device time is the device's busy time in that span,
+whatever kernels run there. The least time sums, over the layer's
+operations (`lib/counts.py`: both branches' row normalisation and
+InfoNCE), the larger of FLOPs over the peak rate and bytes over the peak
+bandwidth."""
+
+from perfbench.metrics.lib import counts, peaks
+
+
+def read(ctx):
+    peak = peaks.peaks(ctx.device_kind)
+    p = ctx.profile
+    if p is None or peak is None or not p.layer_busy_s.get("loss"):
+        return None
+    least = counts.least_seconds(ctx.recipe.layer_ops("loss", p.shapes), peak)
+    return 100.0 * least / p.layer_busy_s["loss"]
