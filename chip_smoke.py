@@ -67,8 +67,9 @@
    set to 0 just before and read just after, and checks that each view
    removed int(0.2 n) nodes, that the losses are finite, and that each
    InfoNCE kernel ran twice per step. Then one more step under the
-   profiler (`rlap_tpu_torch.utils.tracing`), with spans around the views,
-   the forward, the loss, the backward and the Adam update: from its
+   profiler (`rlap_tpu_torch.utils.tracing`), read by the trainer's own
+   spans (`trainer.views`, `.forward`, `.loss`, `.backward`,
+   `.optimizer`, `.loss_readback`): from its
    Chrome trace, the card's busy time (the union of kernel, memcpy and
    memset intervals in the step's span), its idle share and the five
    device ops with the most time. The trace must hold CUDA kernels and an
@@ -668,26 +669,16 @@ def profiled(label: str, body, phases=(), must_hold=None) -> dict:
                        for p, r in res["phases"].items()}}
 
 
-STEP_PHASES = ("views", "forward", "loss", "backward", "adam")
+STEP_PHASES = ("trainer.views", "trainer.forward", "trainer.loss",
+               "trainer.backward", "trainer.optimizer",
+               "trainer.loss_readback")
 
 
 def traced_step(tr, g) -> dict:
-    """One more main-path step under the profiler, each part in a span."""
-
-    def step():
-        tr.optimizer.zero_grad(set_to_none=True)
-        with tracing.annotate("views"):
-            g1, g2 = tr.views(g)
-        with tracing.annotate("forward"):
-            h1, h2 = tr.model(g1, g2)
-        with tracing.annotate("loss"):
-            loss = tr.contrast(h1, h2, node_mask=g1.node_mask)
-        with tracing.annotate("backward"):
-            loss.backward()
-        with tracing.annotate("adam"):
-            tr.optimizer.step()
-
-    return profiled("main_path_step", step, STEP_PHASES, must_hold="infonce")
+    """One more main-path step under the profiler, read by the trainer's
+    own spans (`models/grace.py`)."""
+    return profiled("main_path_step", lambda: tr.train_epoch(g),
+                    STEP_PHASES, must_hold="infonce")
 
 
 def main_path(g, f: int) -> tuple:

@@ -5,6 +5,10 @@ Both views come from the same augmentor, with self-loops added after
 augmentation; a GCN (or MLP) backbone; per-dimension standardised
 embeddings and the CCA-SSG loss; a fixed epoch budget; a linear probe on
 the clean graph (with self-loops) for evaluation.
+
+The trainer's spans are GRACE's (`models/grace.py`): `trainer.step`
+holding `trainer.views`, `trainer.forward`, `trainer.loss`,
+`trainer.backward`, `trainer.optimizer` and `trainer.loss_readback`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
 from rlap_tpu_torch.nn.gcn import GCNConv
 from rlap_tpu_torch.nn.layers import PReLU, _dense
 from rlap_tpu_torch.objectives.cca import cca_ssg_loss, standardize
+from rlap_tpu_torch.utils import tracing
 
 
 class CCAGCN(nn.Module):
@@ -113,19 +118,26 @@ class CCASSGTrainer:
                                     self.weight_decay)
 
     def views(self, g: Graph):
-        self.key, k1, k2 = rng.split(self.key, 3)
-        return (G.add_self_loops(self.aug(g, k1)),
-                G.add_self_loops(self.aug(g, k2)))
+        with tracing.annotate("trainer.views"):
+            self.key, k1, k2 = rng.split(self.key, 3)
+            return (G.add_self_loops(self.aug(g, k1)),
+                    G.add_self_loops(self.aug(g, k2)))
 
     def train_step(self, g1: Graph, g2: Graph) -> float:
         self.ensure_init(g1)
         self.optimizer.zero_grad(set_to_none=True)
-        z1, z2 = self.model(g1, g2)
-        loss = cca_ssg_loss(z1, z2, lam=self.lam, node_mask=g1.node_mask,
-                            pre_standardized=True)
-        loss.backward()
-        self.optimizer.step()
-        return float(loss.detach())
+        with tracing.annotate("trainer.forward"):
+            z1, z2 = self.model(g1, g2)
+        with tracing.annotate("trainer.loss"):
+            loss = cca_ssg_loss(z1, z2, lam=self.lam,
+                                node_mask=g1.node_mask,
+                                pre_standardized=True)
+        with tracing.annotate("trainer.backward"):
+            loss.backward()
+        with tracing.annotate("trainer.optimizer"):
+            self.optimizer.step()
+        with tracing.annotate("trainer.loss_readback"):
+            return float(loss.detach())
 
     def on_device(self, g: Graph) -> Graph:
         """`g` on the trainer's device, the same object each time it is
@@ -136,7 +148,8 @@ class CCASSGTrainer:
         return self._placed[1]
 
     def train_epoch(self, g: Graph) -> float:
-        return self.train_step(*self.views(self.on_device(g)))
+        with tracing.annotate("trainer.step"):
+            return self.train_step(*self.views(self.on_device(g)))
 
     def fit(self, g: Graph, max_epochs: int = 100, verbose: bool = False,
             tolerance: int = 10**9, checkpoint_dir: Optional[str] = None,

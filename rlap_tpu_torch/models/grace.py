@@ -10,6 +10,13 @@ With a `mesh` (`rlap_tpu_torch.parallel`), every rank of the mesh runs
 the trainer: the encoder aggregates over the edge shards of the mesh's
 "data" axis, and the parameters, the embeddings and the loss are
 replicated.
+
+While a profiler records (`utils/tracing.py`), `train_epoch` is a span
+`trainer.step` holding `trainer.views`, `trainer.forward`, `trainer.loss`,
+`trainer.backward`, `trainer.optimizer` and `trainer.loss_readback` (the
+step's one sync), in that order. `zero_grad(set_to_none=True)` drops
+references and launches nothing; it stays at the step's start, outside
+the spans, so that no gradient left by another caller enters a step.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from rlap_tpu_torch.nn.gcn import GCNEncoder, ProjectionHead
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
 from rlap_tpu_torch.parallel.mesh import (average_gradients, shard_graph,
                                           shard_views)
+from rlap_tpu_torch.utils import tracing
 
 
 class GRACE(nn.Module):
@@ -102,15 +110,16 @@ class GraceTrainer:
                                     self.weight_decay)
 
     def views(self, g: Graph):
-        if self.pair_augmentor is not None:
-            self.key, k = rng.split(self.key)
-            make = lambda: self.pair_augmentor(g, k)
-        else:
-            self.key, k1, k2 = rng.split(self.key, 3)
-            make = lambda: (self.aug1(g, k1), self.aug2(g, k2))
-        if self.mesh is None:
-            return make()
-        return shard_views(make, self.mesh, self.device)
+        with tracing.annotate("trainer.views"):
+            if self.pair_augmentor is not None:
+                self.key, k = rng.split(self.key)
+                make = lambda: self.pair_augmentor(g, k)
+            else:
+                self.key, k1, k2 = rng.split(self.key, 3)
+                make = lambda: (self.aug1(g, k1), self.aug2(g, k2))
+            if self.mesh is None:
+                return make()
+            return shard_views(make, self.mesh, self.device)
 
     def train_step(self, g1: Graph, g2: Graph) -> float:
         """One Adam step on the given views (with a mesh, this rank's
@@ -118,16 +127,22 @@ class GraceTrainer:
         self.ensure_init(g1)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        h1, h2 = self.model(g1, g2)
-        loss = self.contrast(h1, h2, node_mask=g1.node_mask)
-        loss.backward()
-        if self.mesh is not None:
-            average_gradients(self.model.parameters(), self.mesh)
-        self.optimizer.step()
-        return float(loss.detach())
+        with tracing.annotate("trainer.forward"):
+            h1, h2 = self.model(g1, g2)
+        with tracing.annotate("trainer.loss"):
+            loss = self.contrast(h1, h2, node_mask=g1.node_mask)
+        with tracing.annotate("trainer.backward"):
+            loss.backward()
+            if self.mesh is not None:
+                average_gradients(self.model.parameters(), self.mesh)
+        with tracing.annotate("trainer.optimizer"):
+            self.optimizer.step()
+        with tracing.annotate("trainer.loss_readback"):
+            return float(loss.detach())
 
     def train_epoch(self, g: Graph) -> float:
-        return self.train_step(*self.views(g.to(self.device)))
+        with tracing.annotate("trainer.step"):
+            return self.train_step(*self.views(g.to(self.device)))
 
     def fit(self, g: Graph, max_epochs: int = 2000, tolerance: int = 50,
             verbose: bool = False, checkpoint_dir: Optional[str] = None,

@@ -55,6 +55,14 @@ segmented scan. In float64 the absolute error is about 1e-16 times the
 pool's total weight, far below any column weight of a real graph.
 
 The round loop syncs with the host once per round to test for the end.
+
+Tracing (`utils/tracing.py`, kept only while a profiler records): a span
+`rlap.eliminate` for each view, holding `rlap.entry` (for
+`eliminate_pair` outside it: the two views share the entry), one
+`rlap.round` for each round and `rlap.exit`; each round holds its
+stages `rlap.select`, `rlap.merge`, `rlap.sample`, `rlap.writeback` and
+`rlap.end_test` (the read-back of the end test). The counters
+`rlap.views` and `rlap.rounds` count the views and their rounds.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from rlap_tpu_torch import resolve_device
 from rlap_tpu_torch.core import graph as G
 from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.core.graph import Graph
+from rlap_tpu_torch.utils import tracing
 
 _VALID_O_V = ("random", "degree", "coarsen")
 _VALID_O_N = ("asc", "desc", "random")
@@ -193,60 +202,73 @@ def _eliminate_pool(s, r, w, gen, t: int, n: int, o_v: str, o_n: str,
     removed, npend, rounds = 0, (t if o_v == "random" else n), 0
     big = n + 1
     while npend > 0 and removed < t:
-        deg = torch.bincount(torch.cat([s, r]), minlength=n)
-        if o_v == "random" and schedule == "luby":
-            prio = pos
-        else:
-            prio = deg * (n + 1) + pos
-        elim = _select(s, r, pending, prio)
-        if o_v != "random":
-            elim = _cap_to_budget(elim, prio, t - removed)
+        with tracing.annotate("rlap.round"):
+            with tracing.annotate("rlap.select"):
+                deg = torch.bincount(torch.cat([s, r]), minlength=n)
+                if o_v == "random" and schedule == "luby":
+                    prio = pos
+                else:
+                    prio = deg * (n + 1) + pos
+                elim = _select(s, r, pending, prio)
+                if o_v != "random":
+                    elim = _cap_to_budget(elim, prio, t - removed)
 
-        es, er = elim[s], elim[r]
-        touched = es | er
-        owner = torch.where(es, s, r)[touched]
-        other = torch.where(es, r, s)[touched]
-        wt = w[touched]
-        keep = ~touched
-        s, r, w = s[keep], r[keep], w[keep]
+            with tracing.annotate("rlap.merge"):
+                es, er = elim[s], elim[r]
+                touched = es | er
+                owner = torch.where(es, s, r)[touched]
+                other = torch.where(es, r, s)[touched]
+                wt = w[touched]
+                keep = ~touched
+                s, r, w = s[keep], r[keep], w[keep]
 
-        # merge duplicate copies: runs of one (owner, other) pair
-        pair, inv = torch.unique(owner * big + other, sorted=True,
-                                 return_inverse=True)
-        v = torch.zeros(pair.shape[0], dtype=torch.float64,
-                        device=dev).index_add_(0, inv, wt.double())
-        owner, other = pair // big, pair % big
-        if o_n in ("asc", "desc"):
-            order = torch.argsort(v if o_n == "asc" else -v, stable=True)
-            order = order[torch.argsort(owner[order], stable=True)]
-            owner, other, v = owner[order], other[order], v[order]
+                # merge duplicate copies: runs of one (owner, other) pair
+                pair, inv = torch.unique(owner * big + other, sorted=True,
+                                         return_inverse=True)
+                v = torch.zeros(pair.shape[0], dtype=torch.float64,
+                                device=dev).index_add_(0, inv, wt.double())
+                owner, other = pair // big, pair % big
+                if o_n in ("asc", "desc"):
+                    order = torch.argsort(v if o_n == "asc" else -v,
+                                          stable=True)
+                    order = order[torch.argsort(owner[order], stable=True)]
+                    owner, other, v = owner[order], other[order], v[order]
 
-        emit, partner, wnew = _sample_clique(owner, other, v, o_v, gen,
-                                             sampler)
-        other, partner = other[emit], partner[emit]
-        s = torch.cat([s, torch.minimum(other, partner)])
-        r = torch.cat([r, torch.maximum(other, partner)])
-        w = torch.cat([w, wnew[emit].to(w.dtype)])
+            with tracing.annotate("rlap.sample"):
+                emit, partner, wnew = _sample_clique(owner, other, v, o_v,
+                                                     gen, sampler)
+            with tracing.annotate("rlap.writeback"):
+                other, partner = other[emit], partner[emit]
+                s = torch.cat([s, torch.minimum(other, partner)])
+                r = torch.cat([r, torch.maximum(other, partner)])
+                w = torch.cat([w, wnew[emit].to(w.dtype)])
 
-        pending = pending & ~elim
-        nelim, npend = torch.stack([elim.sum(), pending.sum()]).tolist()
+            with tracing.annotate("rlap.end_test"):
+                pending = pending & ~elim
+                nelim, npend = torch.stack([elim.sum(),
+                                            pending.sum()]).tolist()
         removed += nelim
         rounds += 1
+    tracing.count("rlap.views", 1)
+    tracing.count("rlap.rounds", rounds)
     return s, r, w, removed, rounds
 
 
 def _entry(g: Graph, num_remove: int):
-    gg = G.drop_zero_weight(G.coalesce_fast(G.remove_self_loops(g)))
-    t = min(int(num_remove), g.num_nodes - 1)
-    canon = (gg.senders < gg.num_nodes) & (gg.senders < gg.receivers)
-    return gg.senders[canon], gg.receivers[canon], gg.weights[canon], t
+    with tracing.annotate("rlap.entry"):
+        gg = G.drop_zero_weight(G.coalesce_fast(G.remove_self_loops(g)))
+        t = min(int(num_remove), g.num_nodes - 1)
+        canon = (gg.senders < gg.num_nodes) & (gg.senders < gg.receivers)
+        return gg.senders[canon], gg.receivers[canon], gg.weights[canon], t
 
 
 def _exit(g: Graph, s, r, w) -> Graph:
-    out = g.replace(senders=torch.cat([s, r]), receivers=torch.cat([r, s]),
-                    weights=torch.cat([w, w]))
-    out = G.with_capacity(out, max(g.edge_capacity, 2 * s.shape[0]))
-    return G.drop_zero_weight(G.coalesce_fast(out))
+    with tracing.annotate("rlap.exit"):
+        out = g.replace(senders=torch.cat([s, r]),
+                        receivers=torch.cat([r, s]),
+                        weights=torch.cat([w, w]))
+        out = G.with_capacity(out, max(g.edge_capacity, 2 * s.shape[0]))
+        return G.drop_zero_weight(G.coalesce_fast(out))
 
 
 def _check(o_v: str, o_n: str, schedule: str, sampler: str):
@@ -274,10 +296,11 @@ def eliminate(g: Graph, key: torch.Generator, num_remove: int,
     the module docstring); use it only where that does not matter.
     """
     _check(o_v, o_n, schedule, sampler)
-    s, r, w, t = _entry(g, num_remove)
-    s, r, w, removed, rounds = _eliminate_pool(
-        s, r, w, key, t, g.num_nodes, o_v, o_n, schedule, sampler)
-    return _exit(g, s, r, w), removed, rounds
+    with tracing.annotate("rlap.eliminate"):
+        s, r, w, t = _entry(g, num_remove)
+        s, r, w, removed, rounds = _eliminate_pool(
+            s, r, w, key, t, g.num_nodes, o_v, o_n, schedule, sampler)
+        return _exit(g, s, r, w), removed, rounds
 
 
 def eliminate_pair(g: Graph, key: torch.Generator, num_remove: int,
@@ -292,9 +315,10 @@ def eliminate_pair(g: Graph, key: torch.Generator, num_remove: int,
     s, r, w, t = _entry(g, num_remove)
     outs = []
     for kv in rng.split(key):
-        so, ro, wo, removed, rounds = _eliminate_pool(
-            s, r, w, kv, t, g.num_nodes, o_v, o_n, schedule, sampler)
-        outs.append((_exit(g, so, ro, wo), removed, rounds))
+        with tracing.annotate("rlap.eliminate"):
+            so, ro, wo, removed, rounds = _eliminate_pool(
+                s, r, w, kv, t, g.num_nodes, o_v, o_n, schedule, sampler)
+            outs.append((_exit(g, so, ro, wo), removed, rounds))
     return tuple(outs)
 
 

@@ -16,6 +16,7 @@ import torch
 
 from rlap_tpu_torch.core import graph as G
 from rlap_tpu_torch.core.graph import Graph
+from rlap_tpu_torch.utils import tracing
 
 
 def _pad_row(x: torch.Tensor) -> torch.Tensor:
@@ -31,12 +32,19 @@ def spmm(g: Graph, x: torch.Tensor,
     row. With `mesh`, `g` is this rank's shard and the sum runs over the
     edges of every rank of `axis` (`parallel.spmm_edge_partitioned`: one
     all-reduce of the ranks' partials); `x` and the result are
-    replicated."""
+    replicated.
+
+    While a profiler records (`utils/tracing.py`), the single-rank path
+    counts the gathered slots (`spmm.slots`) and the padding slots among
+    them, which all read the sentinel row (`spmm.padding`)."""
     if mesh is not None:
         from rlap_tpu_torch.parallel.spmm import spmm_edge_partitioned
 
         return spmm_edge_partitioned(g, x, mesh, axis=axis,
                                      edge_weights=edge_weights)
+    if tracing.recording():
+        tracing.count("spmm.slots", g.senders.shape[0])
+        tracing.count("spmm.padding", (g.senders == g.num_nodes).sum())
     w = g.weights if edge_weights is None else edge_weights
     msgs = _pad_row(x)[g.senders] * w[:, None].to(x.dtype)
     out = x.new_zeros((g.num_nodes + 1, x.shape[1]))

@@ -1,14 +1,26 @@
-"""Tracing and timing (counterpart of `rlap_tpu/utils/tracing.py`).
+"""The program's spans and counters, and reading them back from a trace
+(counterpart of `rlap_tpu/utils/tracing.py`).
 
-* `TRACER(fmt, *args)`: a printf to stderr, gated on the `RLAP_TPU_TRACE`
-  environment variable.
+The program records only while a `torch.profiler` profile records, as
+the profiler's own state says (`recording()`). With no profiler, a span
+or a counter costs that one check, allocates nothing and launches no
+work on the card; there is no environment variable or flag.
+
+* `annotate(name)`: the program's span. While a profiler records it is a
+  `torch.profiler.record_function` range, on the same clock as the host
+  ops and the card's kernels, memcpys and memsets of the exported Chrome
+  trace; otherwise one shared no-op context manager. Under Nsight
+  Systems, `torch.autograd.profiler.emit_nvtx()` turns the same ranges
+  into NVTX ranges.
+* `count(name, n)`: the program's counter. While a profiler records it
+  adds `n`, a host int or a 0-dimensional tensor, to the counter `name`.
+  A tensor is summed where it lives and read once, by `counters()`, so
+  counting adds no read-back. A call site whose count costs device work
+  computes it only when `recording()`.
+* `counters()`: every counter as `{name: float}`; clears them.
 * `trace(log_dir)`: a context manager around `torch.profiler.profile`
   that records the host's activity, and the card's whenever CUDA is
   initialised; on exit it writes a Chrome trace to `<log_dir>/trace.json`.
-* `annotate(name)`: a named span in that trace
-  (`torch.profiler.record_function`), and on the card an NVTX range too.
-* `Timer`: an accumulating phase timer with a `report()` table; it
-  synchronises the card before it reads the clock.
 * `device_time(path, span)`: what the card did inside one span of a
   trace: busy time, idle share and the ops that took most of it.
 * `traced(label, body)`: `body()` run once under `trace` in a span of its
@@ -20,17 +32,41 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import sys
 import tempfile
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence, Union
 
 import torch
 
+_OFF = contextlib.nullcontext()
+counters_: Dict[str, Union[int, torch.Tensor]] = {}
 
-def TRACER(fmt: str, *args) -> None:
-    if os.environ.get("RLAP_TPU_TRACE"):
-        print(fmt % args if args else fmt, file=sys.stderr, flush=True)
+
+def recording() -> bool:
+    """Whether a profiler records, so that spans and counters are kept."""
+    return torch.autograd._profiler_enabled()
+
+
+def annotate(name: str):
+    """`with annotate("rlap.round"): ...`: a span of the trace while a
+    profiler records, a shared no-op otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: Union[int, torch.Tensor]) -> None:
+    """Add `n` to the counter `name` while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        counters_[name] = counters_.get(name, 0) + n
+
+
+def counters() -> Dict[str, float]:
+    """The counters kept since the last call, read to the host; clears
+    them."""
+    out = {name: float(v) for name, v in counters_.items()}
+    counters_.clear()
+    return out
 
 
 @contextlib.contextmanager
@@ -44,63 +80,6 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_initialized():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
-
-
-def _cards(obj, found: set) -> set:
-    """The CUDA devices of the tensors in `obj`: a tensor, anything with a
-    `device` (a Graph), or a tuple or list of them."""
-    if isinstance(obj, (tuple, list)):
-        for o in obj:
-            _cards(o, found)
-    elif isinstance(obj, torch.Tensor) or hasattr(obj, "device"):
-        if obj.device.type == "cuda":
-            found.add(obj.device)
-    return found
-
-
-class Timer:
-    """Accumulating phase timer: `with timer("views", sync=(g1, g2)): ...`.
-    With `sync`, every card that holds one of its tensors is synchronised
-    before the phase's clock stops, so the time covers the work queued."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        yield
-        for dev in _cards(sync, set()):
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self, file=None) -> Dict[str, float]:
-        """Print each phase's total, count and mean, most time first, to
-        `file` (stderr by default); returns the totals in seconds."""
-        file = sys.stderr if file is None else file
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            total = self.totals[name]
-            cnt = self.counts[name]
-            print(f"{name:40s} {total * 1e3:10.2f} ms total "
-                  f"({cnt}x, {total / cnt * 1e3:.2f} ms each)",
-                  file=file, flush=True)
-        return dict(self.totals)
 
 
 # the categories of torch's Chrome trace that are work on the card

@@ -1,16 +1,33 @@
-"""The port's tracing utilities, mirroring `tests/test_tracing.py`: TRACER
-gating, Timer accounting with `sync` on a tensor and on a Graph,
-`annotate`, and a profiler trace that holds the annotated span; and
-`device_time`, which reads the card's busy time out of such a trace."""
+"""The port's tracing: spans and counters kept only while a profiler
+records (none, no work and the same results without one), the trainers'
+and the rLap rounds' spans, `spmm`'s padding counter, a profiler trace
+that holds an annotated span, and `device_time`, which reads the card's
+busy time out of such a trace."""
 
 import json
 
 import pytest
 import torch
 
-from rlap_tpu_torch.data.synthetic import barabasi_albert
-from rlap_tpu_torch.utils.tracing import (TRACER, Timer, annotate,
-                                          device_time, trace, traced)
+from rlap_tpu_torch.augment.base import Compose
+from rlap_tpu_torch.augment.cca_registry import make_cca_augmentor
+from rlap_tpu_torch.augment.feature import FeatureMasking
+from rlap_tpu_torch.augment.rlap import RLap
+from rlap_tpu_torch.core import graph as G
+from rlap_tpu_torch.core import rng
+from rlap_tpu_torch.data.synthetic import synthetic_node_dataset
+from rlap_tpu_torch.models.cca_ssg import CCASSGTrainer
+from rlap_tpu_torch.models.grace import GraceTrainer
+from rlap_tpu_torch.ops import rlap as R
+from rlap_tpu_torch.ops.spmm import spmm
+from rlap_tpu_torch.utils import tracing
+from rlap_tpu_torch.utils.tracing import (annotate, device_time, trace,
+                                          traced)
+
+STEP = ["trainer.views", "trainer.forward", "trainer.loss",
+        "trainer.backward", "trainer.optimizer", "trainer.loss_readback"]
+STAGES = ["rlap.select", "rlap.merge", "rlap.sample", "rlap.writeback",
+          "rlap.end_test"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -24,36 +41,178 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def test_tracer_gated(capsys, monkeypatch):
-    monkeypatch.delenv("RLAP_TPU_TRACE", raising=False)
-    TRACER("hidden %d", 1)
-    assert capsys.readouterr().err == ""
-    monkeypatch.setenv("RLAP_TPU_TRACE", "1")
-    TRACER("shown %d", 2)
-    TRACER("plain")
-    err = capsys.readouterr().err
-    assert "shown 2" in err and "plain" in err
+@pytest.fixture(autouse=True)
+def _no_counts_left():
+    tracing.counters()
+    yield
+    tracing.counters()
 
 
-def test_timer_and_annotation(capsys):
-    t = Timer()
-    g = barabasi_albert(50, 2, seed=0, device="cpu")
-    with t("phase_a"):
-        x = torch.ones(128) * 2
-    with t("phase_a", sync=x):
-        x = x + 1
-    with t("phase_b", sync=(x, g)):
-        _ = g.senders.sum()
-    with t("phase_b", sync=g):
+def _graph(n=96, seed=3):
+    g, _ = synthetic_node_dataset(n=n, feature_dim=8, seed=seed,
+                                  device="cpu")
+    return g
+
+
+def _grace(seed=0):
+    views = [Compose([RLap(0.2, device="cpu"), FeatureMasking(0.3)])
+             for _ in range(2)]
+    return GraceTrainer(*views, hidden_dim=8, num_layers=2, block_size=32,
+                        seed=seed, device="cpu")
+
+
+def _cca(seed=0):
+    return CCASSGTrainer(make_cca_augmentor("rlap", 0.2, 0.2),
+                         hidden_dim=8, out_dim=8, seed=seed, device="cpu")
+
+
+def _spans(d):
+    """The trace's spans in `d/trace.json` as (start, end, name), in the
+    order they start (a parent before its first child)."""
+    events = json.loads((d / "trace.json").read_text())["traceEvents"]
+    return sorted((float(e["ts"]), -float(e["dur"]), e["name"])
+                  for e in events if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation")
+
+
+def _inside(spans, lo, hi, names):
+    return [(a, a - nd, n) for a, nd, n in spans
+            if n in names and lo <= a and a - nd <= hi]
+
+
+def test_without_a_profiler_a_span_is_the_shared_noop():
+    assert not tracing.recording()
+    first, second = annotate("rlap.round"), annotate("trainer.step")
+    assert first is second
+    assert not isinstance(first, torch.profiler.record_function)
+    with first:
         pass
-    with annotate("span"):
-        _ = x.sum()
-    assert t.counts == {"phase_a": 2, "phase_b": 2}
-    assert t.totals["phase_a"] > 0
-    totals = t.report()
-    assert totals == t.totals
-    err = capsys.readouterr().err
-    assert "phase_a" in err and "2x" in err
+
+
+def test_without_a_profiler_a_count_keeps_nothing():
+    tracing.count("a", 3)
+    tracing.count("b", torch.tensor(2))
+    assert tracing.counters_ == {}
+    assert tracing.counters() == {}
+
+
+def test_an_unprofiled_epoch_records_nothing(monkeypatch):
+    """No profiler: the program opens no `record_function` or NVTX range
+    on a GRACE step (torch's own optimizer keeps its range, under
+    `torch.autograd.profiler`), and keeps no counter."""
+
+    def refuse(*args, **kw):
+        raise AssertionError("a span was recorded with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", refuse)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", refuse)
+    loss = _grace().train_epoch(_graph())
+    assert loss == loss
+    assert tracing.counters() == {}
+
+
+@pytest.mark.parametrize("make", [_grace, _cca], ids=["grace", "cca_ssg"])
+def test_a_profiled_step_nests_its_phases_in_order(tmp_path, make):
+    tr, g = make(), _graph()
+    tr.train_epoch(g)                   # the model is built outside
+    with trace(str(tmp_path)):
+        tr.train_epoch(g)
+    spans = _spans(tmp_path)
+    steps = [(a, a - nd) for a, nd, n in spans if n == "trainer.step"]
+    assert len(steps) == 1
+    lo, hi = steps[0]
+    phases = _inside(spans, lo, hi, STEP)
+    assert [n for _, _, n in phases] == STEP
+    assert len([n for _, _, n in spans if n in STEP]) == len(STEP)
+    for (_, end, _), (start, _, _) in zip(phases, phases[1:]):
+        assert end <= start             # one after another, not nested
+    views = phases[0]
+    assert len(_inside(spans, views[0], views[1], ["rlap.eliminate"])) == 2
+
+
+def test_each_round_is_a_span_with_its_stages(tmp_path):
+    g = _graph(n=128)
+    with trace(str(tmp_path)):
+        _, removed, rounds = R.eliminate(g, rng.key(5, device="cpu"), 40,
+                                         o_n="asc")
+    counts = tracing.counters()
+    assert removed == 40 and rounds > 1
+    assert counts == {"rlap.views": 1.0, "rlap.rounds": float(rounds)}
+    spans = _spans(tmp_path)
+    [(lo, hi, _)] = _inside(spans, -1e300, 1e300, ["rlap.eliminate"])
+    inner = [n for _, _, n in _inside(spans, lo, hi, ["rlap.entry",
+                                                      "rlap.round",
+                                                      "rlap.exit"])]
+    assert inner == ["rlap.entry"] + ["rlap.round"] * rounds + ["rlap.exit"]
+    for a, b, _ in _inside(spans, lo, hi, ["rlap.round"]):
+        assert [n for _, _, n in _inside(spans, a, b, STAGES)] == STAGES
+
+
+def test_a_pair_is_two_views_that_share_the_entry(tmp_path):
+    g = _graph(n=128)
+    with trace(str(tmp_path)):
+        (_, _, r1), (_, _, r2) = R.eliminate_pair(
+            g, rng.key(7, device="cpu"), 40)
+    assert tracing.counters() == {"rlap.views": 2.0,
+                                  "rlap.rounds": float(r1 + r2)}
+    names = [n for _, _, n in _spans(tmp_path)]
+    assert names.count("rlap.eliminate") == 2
+    assert names.count("rlap.entry") == 1
+    assert names.count("rlap.round") == r1 + r2
+
+
+def test_spmm_counts_the_padding_it_gathers_once_at_export():
+    g = G.with_capacity(_graph(n=64), 0)
+    g = G.with_capacity(g, g.edge_capacity + 37)
+    x = torch.randn(g.num_nodes, 4)
+    padding = int((g.senders == g.num_nodes).sum())
+    assert padding >= 37
+    with torch.profiler.profile():
+        spmm(g, x)
+        spmm(g, x)
+        kept = tracing.counters_["spmm.padding"]
+    # summed where it lives, not read to the host until the export
+    assert isinstance(kept, torch.Tensor) and kept.dim() == 0
+    assert tracing.counters() == {"spmm.slots": 2.0 * g.edge_capacity,
+                                  "spmm.padding": 2.0 * padding}
+    spmm(g, x)                          # no profiler: nothing is counted
+    assert tracing.counters() == {}
+
+
+def test_a_profiled_run_gives_the_same_losses_and_views(tmp_path):
+    g = _graph()
+    plain, profiled = _grace(seed=4), _grace(seed=4)
+    runs = []
+    for tr, traced_ in ((plain, False), (profiled, True)):
+        out = []
+        for _ in range(2):
+            if traced_:
+                with trace(str(tmp_path)):
+                    views = tr.views(g)
+                    out.append((views, tr.train_step(*views)))
+            else:
+                views = tr.views(g)
+                out.append((views, tr.train_step(*views)))
+        runs.append(out)
+    for (va, la), (vb, lb) in zip(*runs):
+        assert la == lb
+        for a, b in zip(va, vb):
+            for field in ("senders", "receivers", "weights", "x"):
+                assert torch.equal(getattr(a, field), getattr(b, field))
+    assert tracing.counters()["spmm.slots"] > 0
+
+
+def test_counters_sum_host_and_tensor_counts_and_clear():
+    with torch.profiler.profile():
+        assert tracing.recording()
+        tracing.count("c", 2)
+        tracing.count("c", torch.tensor(3))
+        tracing.count("d", 1)
+    assert not tracing.recording()
+    assert tracing.counters() == {"c": 5.0, "d": 1.0}
+    assert tracing.counters() == {}
+    assert tracing.counters_ == {}
 
 
 def test_profiler_trace_holds_the_span(tmp_path):
