@@ -6,10 +6,11 @@
 1. Requires a CUDA device and prints the card's name and power limit.
    TF32 is switched off for matmuls and cuDNN, so every float32 product
    (the plain versions included) runs in full float32.
-2. Builds both kernel libraries with nvcc, side by side: the InfoNCE
-   kernels (`rlap_tpu_torch/csrc/infonce.cu`) and the access probes
+2. Builds the three kernel libraries with nvcc, side by side: the InfoNCE
+   kernels (`rlap_tpu_torch/csrc/infonce.cu`), the access probes
    (`rlap_tpu_torch/csrc/access.cu`: the eight, and the previous designs
-   of C2, C3, C4, V2 and V4), and prints ptxas's resource lines
+   of C2, C3, C4, V2 and V4) and the SpMM (`rlap_tpu_torch/csrc/
+   spmm.cu`), and prints ptxas's resource lines
    (registers, spills, static shared memory) and remarks, one line each
    for the redesigned C2, C3, C4, V1, V2 and V4 kernels, the dynamic
    shared memory of the tensor-core kernels, of the C2, C3 and V4
@@ -32,6 +33,15 @@
    coefficients reaches it through its column sums), with the error of the
    plain float32 versions and of the plain emulation of the kernels' 3xTF32
    arithmetic beside.
+3b. SpMM phase (`spmm_phase`): on an rLap view of BA(169343, 7) through
+   `gcn_norm`, the training cells' graph, at f = 128 and 512, holds the
+   kernel's forward and dx against `spmm_plain` (rtol 1e-5 / atol 1e-5)
+   and the same bits from two calls, prints the error of both against
+   float64, and times forward plus backward of the kernel path, of
+   `spmm_plain` and of `torch.sparse.mm` on CSR (a yardstick the port
+   never calls) beside twice `perfbench`'s `counts.spmm` bound, the two
+   orders' build, and the kernel alone with and without the rows of more
+   than 256 in-edges.
 4. Probe phase. Holds the eight access kernels and the previous designs
    of C2, C3, C4, V2 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
    `scatter_min_atomic`, `take_axis0_l2`, `take_axis0_axis1_l2`) bit-equal
@@ -66,7 +76,8 @@
    128-d features, 1 warm-up and 3 timed steps, with the InfoNCE counts
    set to 0 just before and read just after, and checks that each view
    removed int(0.2 n) nodes, that the losses are finite, and that each
-   InfoNCE kernel ran twice per step. Then one more step under the
+   InfoNCE kernel ran twice per step and the SpMM kernel four times
+   forward and four backward. Then one more step under the
    profiler (`rlap_tpu_torch.utils.tracing`), read by the trainer's own
    spans (`trainer.views`, `.forward`, `.loss`, `.backward`,
    `.optimizer`, `.loss_readback`): from its
@@ -130,10 +141,11 @@
    positive union of the shards that keeps no eliminated node. Prints
    each rank's step, views and rLap ms a view, and the edges/s of the
    t = n/2 call beside the single-device `eliminate`'s.
-10. Prints one JSON line of the probe, one of the main path, one of each
-   bench, one of the CLI phase, one of the sharded phase, one of all
-   eleven kernels and the seven other designs (each row with the card's
-   name and power limit), the nvidia-smi line, and last
+10. Prints one JSON line of the SpMM phase, one of the probe, one of the
+   main path, one of each bench, one of the CLI phase, one of the sharded
+   phase, one of all eleven kernels, the seven other designs and the SpMM
+   (each row with the card's name and power limit), the nvidia-smi line,
+   and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
    exits non-zero.
 """
@@ -183,6 +195,7 @@ from rlap_tpu_torch.objectives.contrast import DualBranchContrast
 from rlap_tpu_torch.ops import _build
 from rlap_tpu_torch.ops import access as A
 from rlap_tpu_torch.ops import infonce_fused as K
+from rlap_tpu_torch.ops import spmm as S
 from rlap_tpu_torch.ops.rlap import (_entry, _select, approximate_cholesky,
                                      eliminate)
 from rlap_tpu_torch.ops.spmm import gcn_norm, spmm
@@ -443,6 +456,99 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
     return rows
 
 
+# the benchmark's training graph: BA(n, m=7) at ogbn-arxiv's node count
+SPMM_N, SPMM_M, SPMM_WIDTHS = 169_343, 7, (128, 512)
+HUB_CAP = 256  # rows past this many in-edges, dropped to see their tail
+
+
+def spmm_phase(smi: str) -> dict:
+    """The SpMM kernel (`csrc/spmm.cu`) at the training cells' shapes: an
+    rLap view (t = 0.2 n) of BA(169343, 7) through `gcn_norm`, as the
+    encoder aggregates it, at f = 128 (GRACE) and 512 (CCA-SSG). Holds the
+    kernel's forward and dx against `spmm_plain` (rtol 1e-5 / atol 1e-5)
+    and both against float64; times forward plus backward (dx) of the
+    kernel path (orders and launches), of `spmm_plain` and, as a
+    yardstick the port never calls, `torch.sparse.mm` on CSR (A x and
+    A^T g, the matrices built outside the timing), beside twice
+    `perfbench`'s `counts.spmm` bound; times the two orders' build, the
+    kernel alone, and the kernel alone without the rows of more than
+    `HUB_CAP` in-edges, to see whether the longest rows set its tail."""
+    from perfbench.metrics.lib.counts import spmm as spmm_count
+
+    t0 = time.perf_counter()
+    g = barabasi_albert(SPMM_N, SPMM_M, seed=0, device="cuda")
+    view = RLap(FRAC).augment(g, rng.key(1, device="cuda"))
+    gl, wn = gcn_norm(view)
+    n = gl.num_nodes
+    live = (gl.senders < n) & (gl.receivers < n)
+    e_live = int(live.sum())
+    res = {"n": n, "slots": gl.edge_capacity, "live_edges": e_live,
+           "padding_slots": int((gl.senders == n).sum()),
+           "largest_in_degree": int(torch.bincount(
+               gl.receivers[live], minlength=n).max()),
+           "graph_s": time.perf_counter() - t0, "card": smi, "widths": {}}
+    r, c, w = gl.receivers[live], gl.senders[live], wn[live]
+    csr = torch.sparse_coo_tensor(torch.stack([r, c]), w, (n, n)) \
+        .coalesce().to_sparse_csr()
+    csr_t = torch.sparse_coo_tensor(torch.stack([c, r]), w, (n, n)) \
+        .coalesce().to_sparse_csr()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for f in SPMM_WIDTHS:
+        x = torch.randn(n, f, generator=gen, device="cuda")
+        gy = torch.randn(n, f, generator=gen, device="cuda")
+
+        def fwd_bwd(fn, x=x, gy=gy, w=wn):
+            xx = x.detach().requires_grad_(True)
+            out = fn(gl, xx, w)
+            out.backward(gy)
+            return out.detach(), xx.grad
+
+        S.reset_launch_counts()
+        got = fwd_bwd(S.spmm)
+        require(S.launch_counts == {"spmm_fwd": 1, "spmm_bwd": 1},
+                f"spmm at f={f} launched {S.launch_counts}")
+        ref = fwd_bwd(S.spmm_plain)
+        ref64 = fwd_bwd(S.spmm_plain, x.double(), gy.double(), wn.double())
+        row = {"max_abs_err": max(
+            close(f"spmm {part} f={f}", a, b, 1e-5, 1e-5)
+            for part, a, b in zip(("forward", "dx"), got, ref))}
+        row["rel_err_vs_float64"] = {
+            "kernel": max(rel_err(a, b) for a, b in zip(got, ref64)),
+            "plain": max(rel_err(a, b) for a, b in zip(ref, ref64))}
+        again = fwd_bwd(S.spmm)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"spmm at f={f}: two calls differ")
+        del ref, ref64, again
+        row["ms"] = cuda_ms(lambda: fwd_bwd(S.spmm), 5)
+        row["fwd_ms"] = cuda_ms(lambda: S.spmm(gl, x, wn), 5)
+        row["plain_ms"] = cuda_ms(lambda: fwd_bwd(S.spmm_plain), 5)
+        row["library_ms"] = cuda_ms(
+            lambda: (torch.sparse.mm(csr, x), torch.sparse.mm(csr_t, gy)), 5)
+        op = spmm_count(n, e_live, f)
+        row["bound_ms"] = 2e3 * max(op.bytes / HBM_BYTES,
+                                    op.flops / FP32_FLOPS)
+        row["orders_ms"] = cuda_ms(
+            lambda: (S.segment_order(gl.receivers, gl.senders, n),
+                     S.segment_order(gl.senders, gl.receivers, n)), 5)
+        rowptr, perm, col = S.segment_order(gl.receivers, gl.senders, n)
+        wp = wn[perm].contiguous()
+        row["kernel_alone_ms"] = cuda_ms(
+            lambda: S.segment_sum(x, rowptr, col, wp), 10)
+        indeg = torch.bincount(gl.receivers, minlength=n + 1)
+        keep = (indeg[gl.receivers] <= HUB_CAP) & live
+        ptr2, perm2, col2 = S.segment_order(gl.receivers[keep],
+                                            gl.senders[keep], n)
+        wp2 = wn[keep][perm2].contiguous()
+        row["hub_rows"] = int((indeg[:n] > HUB_CAP).sum())
+        row["hub_edge_share"] = 1.0 - int(keep.sum()) / e_live
+        row["kernel_alone_without_hubs_ms"] = cuda_ms(
+            lambda: S.segment_sum(x, ptr2, col2, wp2), 10)
+        print(f"spmm at n={n} f={f}: {json.dumps(row)}", flush=True)
+        res["widths"][f] = row
+        del x, gy, rowptr, perm, col, wp, ptr2, perm2, col2, wp2
+    return res
+
+
 def ptxas_usage(log: str, names) -> dict:
     """Registers, shared memory and spills of each kernel in `names`, from
     the `-Xptxas -v` output of a build."""
@@ -694,6 +800,7 @@ def main_path(g, f: int) -> tuple:
     require(math.isfinite(warm), f"warm-up loss {warm}")
 
     K.reset_launch_counts()
+    S.reset_launch_counts()
     losses, view_ms, train_ms = [], [], []
     for _ in range(STEPS):
         t = sync_s()
@@ -711,6 +818,10 @@ def main_path(g, f: int) -> tuple:
     for name in K.KERNELS:
         require(launches[name] == 2 * STEPS,
                 f"{name} launched {launches[name]} times in {STEPS} steps")
+    # 2 views x 2 GCN layers, forward and backward
+    spmm_launches = dict(S.launch_counts)
+    require(spmm_launches == {k: 4 * STEPS for k in S.KERNELS},
+            f"spmm launched {spmm_launches} in {STEPS} steps")
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
 
     # breakdown of one more step into its parts (not part of the counts)
@@ -748,7 +859,7 @@ def main_path(g, f: int) -> tuple:
         "backward_ms": 1e3 * (t_bwd - t_loss),
         "adam_ms": 1e3 * (t_opt - t_bwd),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches,
+        "launches": launches, "spmm_launches": spmm_launches,
         "device_busy_ms": traced["device_busy_ms"],
         "device_idle_share": traced["device_idle_share"],
         "top_device_ops": traced["top_device_ops"],
@@ -1297,9 +1408,9 @@ def main(argv=None) -> int:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(mod.build, ("-Xptxas", "-v"))
-                  for mod in (K, A)]
+                  for mod in (K, A, S)]
         built = [b.result() for b in builds]
     print(f"built {', '.join(lib.name for lib, _ in built)} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
@@ -1344,6 +1455,9 @@ def main(argv=None) -> int:
 
     f = 128
     rows = kernel_phase(args.n, f)
+    spmm_rows = spmm_phase(smi)
+    print(json.dumps({"spmm": spmm_rows}), flush=True)
+    torch.cuda.empty_cache()
     check_step_against_float64(f)
     g = make_graph(args.n, f)
     probe, probe_launches = probe_phase(g)
@@ -1415,6 +1529,13 @@ def main(argv=None) -> int:
             # the one-thread walk's own floor, from its cycles in this run
             kernels[-1]["walk_floor_ms"] = \
                 probe["take_scalar_cycles"]["random"]["walk_ms"]
+    kernels.append({
+        "name": "spmm_csr", "route": "cuda",
+        "source": "rlap_tpu_torch/csrc/spmm.cu",
+        "replaces": "none: XLA's segment-sum in rlap_tpu/ops/spmm.py",
+        "launches": summary["spmm_launches"], "card": smi,
+        "shape": {k: spmm_rows[k] for k in ("n", "slots", "live_edges")},
+        "by_width": spmm_rows["widths"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
