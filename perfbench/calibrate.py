@@ -9,14 +9,17 @@ readings). The benchmark's own runs do not run this.
 - program: the cell's set-up path (checked steps for a training cell, a
   view pair for the views cell), judged as a run judges it;
 - control: the reference put in the program's place one precision lower
-  (every product in TF32; the rLap sampler in float32), judged against
-  the reference;
+  (`recipe.view_gap(..., dt=torch.float32)`: the rLap sampler in
+  float32; `recipe.reference_train(..., tf32=True)`: every product in
+  TF32), judged against the reference;
 - fault_half: the reference in the program's place with the loss over
   half the nodes (training cells);
-- fault_edge: the program's first view with one edge moved;
+- fault_edge: the program's first recorded view with one edge moved;
 - fault_still: a step that leaves the state unchanged reads 1 by the
   change's measure and needs no run.
-Control and faults run on the first `--faults` seeds.
+Control and faults run on the first `--faults` seeds. Every reading comes
+from the recipe's own `view_gap` and `reference_train`, the functions a
+run's check calls.
 """
 
 import argparse
@@ -33,7 +36,6 @@ def readings(cell, seeds, faults: int, dev):
     import torch
 
     from perfbench import compare, harness
-    from perfbench.reference import rlap as ref_rlap
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
@@ -46,37 +48,21 @@ def readings(cell, seeds, faults: int, dev):
             harness.arm(r.recipe.recorders, log)
             r.unit()
             harness.arm(r.recipe.recorders, None)
-            r.checked_views = [(s, harness.graph_dict(v)) for s, v in log]
+            r.record = harness.to_host(log)
         row = {"seed": seed, "program": r.check()}
         if i < faults:
-            g = harness.graph_dict(r.g)
-            rec = r.recipe
-            n = g["num_nodes"]
-            ctrl = {"view_diff": 0.0}
-            for s, _ in r.checked_views:
-                ref_e, ref_x = ref_rlap.view(g, s, rec.frac, rec.pf,
-                                             rec.plumbing)
-                lo_e, lo_x = ref_rlap.view(g, s, rec.frac, rec.pf,
-                                           rec.plumbing, torch.float32)
-                lower = {"senders": lo_e // (n + 1),
-                         "receivers": lo_e % (n + 1),
-                         "weights": torch.ones(lo_e.shape[0], device=dev),
-                         "x": lo_x, "num_nodes": n}
-                ctrl["view_diff"] += compare.view_diff(lower, ref_e, ref_x)
-            s, view = r.checked_views[0]
-            ref_e, ref_x = ref_rlap.view(g, s, rec.frac, rec.pf, rec.plumbing)
-            moved = harness.graph_dict_to(view, dev)
-            k = int((moved["senders"] < n).sum()) // 2
-            moved["receivers"] = moved["receivers"].clone()
-            moved["receivers"][k] = (moved["receivers"][k] + 1) % n
-            row["fault_edge"] = {"view_diff": compare.view_diff(
-                moved, ref_e, ref_x)}
+            rec, g, record = r.recipe, r.g, r.record
+            ctrl = {"view_diff": rec.view_gap(g, record, torch.float32)}
+            first = next(e for e in record if e.what == "view")
+            view = dict(first.value)
+            n = view["num_nodes"]
+            k = int((view["senders"] < n).sum()) // 2
+            view["receivers"] = view["receivers"].clone()
+            view["receivers"][k] = (view["receivers"][k] + 1) % n
+            row["fault_edge"] = {"view_diff": rec.view_gap(
+                g, [first._replace(value=view)])}
             if r.drive == "train_epoch":
-                views = [harness.graph_dict_to(v, dev)
-                         for _, v in r.checked_views]
-                pairs = [(views[2 * j], views[2 * j + 1])
-                         for j in range(len(views) // 2)]
-                ref = rec.reference_train(r.weights0, pairs)
+                ref = rec.reference_train(r.weights0, g, record)
                 refd = {k: ref[2][k] - r.weights0[k] for k in ref[2]}
 
                 def judged(out):
@@ -84,10 +70,10 @@ def readings(cell, seeds, faults: int, dev):
                     return compare.train_gaps(out[0], ref[0], out[1],
                                               ref[1], d, refd)
 
-                ctrl.update(judged(rec.reference_train(r.weights0, pairs,
+                ctrl.update(judged(rec.reference_train(r.weights0, g, record,
                                                        tf32=True)))
                 row["fault_half"] = judged(rec.reference_train(
-                    r.weights0, pairs, half=True))
+                    r.weights0, g, record, half=True))
                 row["fault_still"] = {"change_gap": 1.0}
             row["control"] = ctrl
         row["seconds"] = time.perf_counter() - t

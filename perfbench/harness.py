@@ -8,12 +8,19 @@ in `BENCHMARK.json`:
 
 - `configs/<config>.json`: sizes and settings, with `recipe` naming
   `recipes/<recipe>.py`, the glue to the program and to the plain
-  reference in `reference/`;
+  reference in `reference/`, and `graph` naming `graphs/<kind>.py`, which
+  makes the inputs;
 - `traffic/<traffic>.json`: what the closed loop drives (`drive`:
   `train_epoch` or `views`) and how many units are checked and traced;
 - `metrics/<metric>.py`: `read(ctx)`, the metric's value or None where
   it finds nothing to read;
 - `checks/<cell>.json`: the limit of each number compared.
+
+The recipe owns its check. While the checked units run, its `recorders`
+log what the reference needs (views, permutations, masks, each with the
+key it came from); the harness moves that record to the host as it
+stands and hands it, with the inputs the configuration made, to
+`recipe.view_gap` (written as `view_diff`) and `recipe.reference_train`.
 """
 
 from __future__ import annotations
@@ -28,12 +35,11 @@ import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from perfbench import compare, graphgen, seeds, tracefile
-from perfbench.reference import rlap as ref_rlap
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "rlap_tpu")
@@ -82,7 +88,7 @@ def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
 
 
 def arm(recorders, log: Optional[list]) -> None:
-    """Start (a list) or stop (None) the recording of views."""
+    """Start (a list) or stop (None) the recording."""
     for rec in recorders:
         rec.log = log
 
@@ -93,18 +99,49 @@ def shapes(views) -> dict:
             "edges": [int(g.edge_mask.sum()) for g in views]}
 
 
-class ViewRecorder:
-    """Wraps an augmentor `(g, key) -> view`; while `log` is a list, each
-    call appends (key seed, view) to it."""
+class Entry(NamedTuple):
+    """One recorded call: what it made (`"view"`, `"perm"`, ...), the seed
+    of the key it drew from, its output as plain tensors, and whether it
+    returned a cached output instead of a fresh one."""
+    what: str
+    key: int
+    value: object
+    cached: bool
 
-    def __init__(self, aug):
-        self.aug = aug
+
+class Recorder:
+    """Wraps a callable of the program, such as an augmentor `(g, key) ->
+    view`. While `log` is a list, each call appends an `Entry`: `what`,
+    the seed `key(*args)` reads (by default the last argument's, an
+    augmentor's key), and the output as plain tensors. A call is marked
+    cached where the callable that `fresh` wrapped did not run in it."""
+
+    def __init__(self, fn: Optional[Callable] = None, what: str = "view",
+                 key: Optional[Callable] = None):
+        self.fn, self.what = fn, what
+        self.key = key or (lambda *args: args[-1].initial_seed())
         self.log: Optional[list] = None
+        self._watched = self._ran = False
 
-    def __call__(self, g, key):
-        out = self.aug(g, key)
-        if self.log is not None:
-            self.log.append((key.initial_seed(), out))
+    def fresh(self, inner: Callable) -> Callable:
+        """`inner`, the callable that makes a fresh output behind a
+        cache, wrapped so that the calls it runs in are told apart."""
+        self._watched = True
+
+        def call(*args):
+            self._ran = True
+            return inner(*args)
+
+        return call
+
+    def __call__(self, *args):
+        if self.log is None:
+            return self.fn(*args)
+        seed = self.key(*args)
+        self._ran = False
+        out = self.fn(*args)
+        self.log.append(Entry(self.what, seed, plain(out),
+                              self._watched and not self._ran))
         return out
 
 
@@ -113,6 +150,32 @@ def graph_dict(g, device=None) -> dict:
     mv = (lambda t: t) if device is None else (lambda t: t.to(device))
     return {"senders": mv(g.senders), "receivers": mv(g.receivers),
             "weights": mv(g.weights), "x": mv(g.x), "num_nodes": g.num_nodes}
+
+
+def plain(out):
+    """A program's output as plain tensors: a graph as `graph_dict`, a
+    tuple or list item by item."""
+    if hasattr(out, "senders"):
+        return graph_dict(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(plain(v) for v in out)
+    return out
+
+
+def moved(x, device):
+    """Plain data with every tensor in it moved to `device`."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: moved(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(moved(v, device) for v in x)
+    return x
+
+
+def to_host(record: list) -> list:
+    """The record with every tensor on the host, entry for entry."""
+    return [e._replace(value=moved(e.value, "cpu")) for e in record]
 
 
 def _sync(dev: torch.device) -> None:
@@ -136,6 +199,7 @@ class Run:
         self.latencies: List[float] = []
         self.losses: List[float] = []
         self.views_s: List[float] = []
+        self.record: List[Entry] = []
         self.window_s = 0.0
         self.units = 0
         self.failed = 0
@@ -175,7 +239,7 @@ class Run:
 
     def _checked_steps(self, mark) -> None:
         """The window's own call drives the trainer through its first
-        steps; their views, losses, the first gradient Adam takes and the
+        steps; their record, losses, the first gradient Adam takes and the
         change of the parameters are kept for the reference."""
         tr, steps = self.trainer, self.cell.traffic["check_steps"]
         names = dict(tr.model.named_parameters())
@@ -194,8 +258,8 @@ class Run:
                     if "exp_avg" in tr.optimizer.state.get(p, {})}
         arm(self.recipe.recorders, None)
         self.prog_delta = {k: names[k].detach() - p0[k] for k in names}
-        self.checked_views = [(s, graph_dict(v, "cpu")) for s, v in log]
-        mark("checked_views_to_host")
+        self.record = to_host(log)
+        mark("record_to_host")
 
     def unit(self):
         if self.drive == "train_epoch":
@@ -207,14 +271,15 @@ class Run:
     # -- the window -------------------------------------------------------
     def window(self) -> None:
         """Closed loop: the next unit starts when the last has synced.
-        The views cell keeps the views of a sample of its pairs, drawn
-        from the seed, for the check."""
+        The views cell records a sample of its pairs, drawn from the seed,
+        for the check, and moves the record to the host once the window
+        has closed."""
         keep = set()
+        log: list = []
         if self.drive == "views":
             pick = random.Random(seeds.derive(self.seed, "sample"))
             keep = set(pick.sample(range(self.cell.traffic["check_among"]),
                                    self.cell.traffic["check_units"]))
-            self.checked_views = []
         if self.trace and self.drive == "train_epoch":
             self._time_views()
         start = time.perf_counter()
@@ -223,7 +288,6 @@ class Run:
         i = 0
         while t < end:
             if i in keep:
-                log: list = []
                 arm(self.recipe.recorders, log)
             a = time.perf_counter()
             out = self.unit()
@@ -233,10 +297,11 @@ class Run:
                 self.failed += 1
             if i in keep:
                 arm(self.recipe.recorders, None)
-                self.checked_views += [(s, graph_dict(v)) for s, v in log]
             i += 1
         self.window_s = t - start
         self.units = i
+        if self.drive == "views":
+            self.record = to_host(log)
         if self.trace and self.drive == "train_epoch":
             del self.trainer.views
 
@@ -315,38 +380,23 @@ class Run:
 
     # -- the check --------------------------------------------------------
     def check(self) -> Dict[str, float]:
-        """The program's state is freed first; the reference then runs
-        view by view and step by step."""
-        cfg = self.recipe
+        """The program's state is freed first; the recipe's reference then
+        judges the record and follows the checked steps."""
+        rec = self.recipe
         self.trainer = None
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
-        g = graph_dict(self.g)
         out: Dict[str, float] = {}
-        if self.checked_views:
-            out["view_diff"] = float(compare.repeated_keys(
-                [seed for seed, _ in self.checked_views]))
-        for seed, view in self.checked_views:
-            ref_edges, ref_x = ref_rlap.view(
-                g, seed, cfg.frac, cfg.pf, cfg.plumbing)
-            out["view_diff"] += compare.view_diff(
-                graph_dict_to(view, self.dev), ref_edges, ref_x)
+        if self.record:
+            out["view_diff"] = rec.view_gap(self.g, self.record)
         if self.drive == "train_epoch":
-            views = [graph_dict_to(v, self.dev) for _, v in
-                     self.checked_views]
-            pairs = [(views[2 * i], views[2 * i + 1])
-                     for i in range(len(views) // 2)]
-            losses, grad, params = cfg.reference_train(self.weights0, pairs)
+            losses, grad, params = rec.reference_train(self.weights0, self.g,
+                                                       self.record)
             delta = {k: params[k] - self.weights0[k] for k in params}
             out.update(compare.train_gaps(
                 self.losses, losses, self.prog_grad, grad,
                 self.prog_delta, delta))
         return out
-
-
-def graph_dict_to(d: dict, device) -> dict:
-    return {k: (v.to(device) if torch.is_tensor(v) else v)
-            for k, v in d.items()}
 
 
 def device_info(dev: torch.device, count: int) -> dict:

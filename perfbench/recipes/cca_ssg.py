@@ -7,8 +7,9 @@ from __future__ import annotations
 import torch
 
 from perfbench import program
-from perfbench.harness import ViewRecorder
+from perfbench.harness import Recorder
 from perfbench.metrics.lib import counts
+from perfbench.recipes.lib import rlap_views
 from perfbench.reference import nets
 
 
@@ -46,7 +47,7 @@ class Recipe:
         from rlap_tpu_torch.augment.cca_registry import make_cca_augmentor
         from rlap_tpu_torch.models.cca_ssg import CCASSGTrainer
 
-        self.recorders = [ViewRecorder(
+        self.recorders = [Recorder(
             make_cca_augmentor("rlap", self.pf, self.frac))]
         tr = CCASSGTrainer(self.recorders[0], hidden_dim=self.hidden,
                            out_dim=self.out, num_layers=self.layers,
@@ -56,15 +57,20 @@ class Recipe:
         program.load_weights(tr.model, weights)
         return tr
 
-    # -- the reference ------------------------------------------------------
-    def reference_train(self, weights: dict, pairs, tf32: bool = False,
-                        half: bool = False):
+    # -- the check ----------------------------------------------------------
+    def view_gap(self, inputs, record, dt=torch.float64) -> float:
+        return rlap_views.view_gap(inputs, record, self.frac, self.pf,
+                                   self.plumbing, self.dev, dt)
+
+    def reference_train(self, weights: dict, inputs, record,
+                        tf32: bool = False, half: bool = False):
         def loss(p, g1, g2, prec):
             return nets.cca_loss(p, nets.with_self_loops(g1),
                                  nets.with_self_loops(g2), self.lam, prec,
                                  self.layers, half)
 
-        return nets.train(loss, weights, pairs, self.lr, self.wd, tf32)
+        return nets.train(loss, weights, rlap_views.pairs(record, self.dev),
+                          self.lr, self.wd, tf32)
 
     # -- layers and work ----------------------------------------------------
     def layer_calls(self, tr, views):

@@ -6,8 +6,9 @@ from __future__ import annotations
 import torch
 
 from perfbench import program
-from perfbench.harness import ViewRecorder
+from perfbench.harness import Recorder
 from perfbench.metrics.lib import counts
+from perfbench.recipes.lib import rlap_views
 from perfbench.reference import nets
 
 
@@ -47,7 +48,7 @@ class Recipe:
         from rlap_tpu_torch.augment.rlap import RLap
         from rlap_tpu_torch.models.grace import GraceTrainer
 
-        self.recorders = [ViewRecorder(Compose([
+        self.recorders = [Recorder(Compose([
             RLap(self.frac, o_v=self.o_v, o_n=self.o_n, device=self.dev),
             FeatureMasking(self.pf)])) for _ in range(2)]
         tr = GraceTrainer(*self.recorders, hidden_dim=self.hidden,
@@ -58,14 +59,19 @@ class Recipe:
         program.load_weights(tr.model, weights)
         return tr
 
-    # -- the reference ------------------------------------------------------
-    def reference_train(self, weights: dict, pairs, tf32: bool = False,
-                        half: bool = False):
+    # -- the check ----------------------------------------------------------
+    def view_gap(self, inputs, record, dt=torch.float64) -> float:
+        return rlap_views.view_gap(inputs, record, self.frac, self.pf,
+                                   self.plumbing, self.dev, dt)
+
+    def reference_train(self, weights: dict, inputs, record,
+                        tf32: bool = False, half: bool = False):
         def loss(p, g1, g2, prec):
             return nets.grace_loss(p, g1, g2, self.tau, prec, self.layers,
                                    half)
 
-        return nets.train(loss, weights, pairs, self.lr, self.wd, tf32)
+        return nets.train(loss, weights, rlap_views.pairs(record, self.dev),
+                          self.lr, self.wd, tf32)
 
     # -- layers and work ----------------------------------------------------
     def layer_calls(self, tr, views):

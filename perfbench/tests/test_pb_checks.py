@@ -69,7 +69,7 @@ def _half_grace(run):
 def _altered_view(run):
     """One edge of every view moved where the augmentor makes it."""
     for rec in run.recipe.recorders:
-        aug = rec.aug
+        aug = rec.fn
 
         def moved(g, key, aug=aug):
             out = aug(g, key)
@@ -78,7 +78,7 @@ def _altered_view(run):
             rcv[k] = (rcv[k] + 1) % out.num_nodes
             return out.replace(receivers=rcv)
 
-        rec.aug = moved
+        rec.fn = moved
 
 
 def _key_stuck(run):
