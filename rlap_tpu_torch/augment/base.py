@@ -10,6 +10,7 @@ import torch
 
 from rlap_tpu_torch.core.graph import Graph
 from rlap_tpu_torch.core.rng import fold_in
+from rlap_tpu_torch.utils import tracing
 
 
 class Augmentor:
@@ -59,7 +60,9 @@ class RandomChoice(Augmentor):
 
 class CachedAugmentor(Augmentor):
     """Wrap an augmentor so that its output is reused for `refresh_every`
-    calls before it is computed again."""
+    calls before it is computed again. While a profiler records, each
+    reuse counts one `diffusion.cache_hits` (the diffusion views are what
+    the registry caches)."""
 
     def __init__(self, inner: Augmentor, refresh_every: int = 50):
         self.inner = inner
@@ -70,6 +73,7 @@ class CachedAugmentor(Augmentor):
     def augment(self, g: Graph, key: torch.Generator) -> Graph:
         if self._cache is not None and self._count < self.refresh_every:
             self._count += 1
+            tracing.count("diffusion.cache_hits", 1)
             return self._cache
         self._cache = self.inner(g, key)
         self._count = 1

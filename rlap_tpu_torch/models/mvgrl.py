@@ -8,6 +8,11 @@ the augmentor is a diffusion and the graph has more than `subsample`
 nodes, both views are restricted to one random node subset of at least
 `subsample` nodes, as a node mask. Evaluation embeds z1 + z2 of a view
 pair drawn from pinned keys.
+
+While a profiler records (`utils/tracing.py`), `train_epoch` is a span
+`trainer.step` holding GRACE's phases, `trainer.views` (with
+`mvgrl.subsample` inside), `.forward`, `.loss`, `.backward`,
+`.optimizer` and `.loss_readback`.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
 from rlap_tpu_torch.nn.gcn import GCNConv
 from rlap_tpu_torch.nn.layers import _dense
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
+from rlap_tpu_torch.utils import tracing
 
 EVAL_SEED = 0x5EED
 
@@ -141,16 +147,19 @@ class MVGRLTrainer:
             self.key, k1, k2, k3 = rng.split(self.key, 4)
         else:
             k1, k2, k3 = keys
-        g1 = self.aug1(g, k1)
-        g2 = self.aug2(g, k2)
-        if ("diffusion" in self.augmentor_name.lower()
-                and g.num_nodes > self.subsample):
-            u = torch.rand(g.num_nodes, generator=k3, device=g.device)
-            keep = subsample_mask(g2, u, self.subsample)
-            nm = keep if g.node_mask is None else keep & g.node_mask
-            g1 = G.induced_subgraph(g1, keep).replace(node_mask=nm)
-            g2 = G.induced_subgraph(g2, keep).replace(node_mask=nm)
-        return g1, g2
+        with tracing.annotate("trainer.views"):
+            g1 = self.aug1(g, k1)
+            g2 = self.aug2(g, k2)
+            if ("diffusion" in self.augmentor_name.lower()
+                    and g.num_nodes > self.subsample):
+                with tracing.annotate("mvgrl.subsample"):
+                    u = torch.rand(g.num_nodes, generator=k3,
+                                   device=g.device)
+                    keep = subsample_mask(g2, u, self.subsample)
+                    nm = keep if g.node_mask is None else keep & g.node_mask
+                    g1 = G.induced_subgraph(g1, keep).replace(node_mask=nm)
+                    g2 = G.induced_subgraph(g2, keep).replace(node_mask=nm)
+            return g1, g2
 
     def corruption(self, n: int):
         """Two row permutations, from a key split off the trainer's."""
@@ -162,16 +171,22 @@ class MVGRLTrainer:
                    perm2: torch.Tensor) -> float:
         self.ensure_init(g1)
         self.optimizer.zero_grad(set_to_none=True)
-        z1, z2, gl1, gl2, z1n, z2n = self.model(g1, g2, perm1, perm2)
-        loss = self.contrast(h1=z1, h2=z2, g1=gl1, g2=gl2, h3=z1n, h4=z2n,
-                             node_mask=g1.node_mask)
-        loss.backward()
-        self.optimizer.step()
-        return float(loss.detach())
+        with tracing.annotate("trainer.forward"):
+            z1, z2, gl1, gl2, z1n, z2n = self.model(g1, g2, perm1, perm2)
+        with tracing.annotate("trainer.loss"):
+            loss = self.contrast(h1=z1, h2=z2, g1=gl1, g2=gl2, h3=z1n,
+                                 h4=z2n, node_mask=g1.node_mask)
+        with tracing.annotate("trainer.backward"):
+            loss.backward()
+        with tracing.annotate("trainer.optimizer"):
+            self.optimizer.step()
+        with tracing.annotate("trainer.loss_readback"):
+            return float(loss.detach())
 
     def train_epoch(self, g: Graph) -> float:
-        g1, g2 = self.views(g.to(self.device))
-        return self.train_step(g1, g2, *self.corruption(g.num_nodes))
+        with tracing.annotate("trainer.step"):
+            g1, g2 = self.views(g.to(self.device))
+            return self.train_step(g1, g2, *self.corruption(g.num_nodes))
 
     def fit(self, g: Graph, max_epochs: int = 2000, tolerance: int = 50,
             verbose: bool = False, checkpoint_dir: Optional[str] = None,

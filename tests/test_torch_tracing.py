@@ -1,6 +1,7 @@
 """The port's tracing: spans and counters kept only while a profiler
 records (none, no work and the same results without one), the trainers'
-and the rLap rounds' spans, `spmm`'s padding counter, a profiler trace
+and the rLap rounds' spans, the diffusion views' build spans and cache
+counters, `spmm`'s padding counter, a profiler trace
 that holds an annotated span, and `device_time`, which reads the card's
 busy time out of such a trace."""
 
@@ -10,14 +11,17 @@ import pytest
 import torch
 
 from rlap_tpu_torch.augment.base import Compose
+from rlap_tpu_torch.augment import diffusion as D
 from rlap_tpu_torch.augment.cca_registry import make_cca_augmentor
 from rlap_tpu_torch.augment.feature import FeatureMasking
+from rlap_tpu_torch.augment.registry import make_augmentor_pair
 from rlap_tpu_torch.augment.rlap import RLap
 from rlap_tpu_torch.core import graph as G
 from rlap_tpu_torch.core import rng
 from rlap_tpu_torch.data.synthetic import synthetic_node_dataset
 from rlap_tpu_torch.models.cca_ssg import CCASSGTrainer
 from rlap_tpu_torch.models.grace import GraceTrainer
+from rlap_tpu_torch.models.mvgrl import MVGRLTrainer
 from rlap_tpu_torch.ops import rlap as R
 from rlap_tpu_torch.ops.spmm import spmm
 from rlap_tpu_torch.utils import tracing
@@ -66,6 +70,13 @@ def _cca(seed=0):
                          hidden_dim=8, out_dim=8, seed=seed, device="cpu")
 
 
+def _mvgrl(seed=0):
+    """MVGRL on the registry's rLap + PPR pair, cut to 32 nodes of 96."""
+    pair = make_augmentor_pair("rLapPPRDiffusion", 0.2, 0.2, device="cpu")
+    return MVGRLTrainer(*pair, augmentor_name="rLapPPRDiffusion",
+                        hidden_dim=8, subsample=32, seed=seed, device="cpu")
+
+
 def _spans(d):
     """The trace's spans in `d/trace.json` as (start, end, name), in the
     order they start (a parent before its first child)."""
@@ -112,7 +123,8 @@ def test_an_unprofiled_epoch_records_nothing(monkeypatch):
     assert tracing.counters() == {}
 
 
-@pytest.mark.parametrize("make", [_grace, _cca], ids=["grace", "cca_ssg"])
+@pytest.mark.parametrize("make", [_grace, _cca, _mvgrl],
+                         ids=["grace", "cca_ssg", "mvgrl"])
 def test_a_profiled_step_nests_its_phases_in_order(tmp_path, make):
     tr, g = make(), _graph()
     tr.train_epoch(g)                   # the model is built outside
@@ -128,7 +140,44 @@ def test_a_profiled_step_nests_its_phases_in_order(tmp_path, make):
     for (_, end, _), (start, _, _) in zip(phases, phases[1:]):
         assert end <= start             # one after another, not nested
     views = phases[0]
-    assert len(_inside(spans, views[0], views[1], ["rlap.eliminate"])) == 2
+    # MVGRL's second call takes its diffusion view from the cache
+    eliminations = 0 if make is _mvgrl else 2
+    assert len(_inside(spans, views[0], views[1],
+                       ["rlap.eliminate"])) == eliminations
+
+
+def test_a_diffusion_build_and_its_cache_hits_are_kept(tmp_path):
+    """A fresh diffusion view is one `diffusion.build` inside the views,
+    holding the rLap, the series and the top-k in turn; the series
+    counts nnz(T) x 32; the next call counts a cache hit and builds
+    nothing. MVGRL's subsample is a span of the views."""
+    tr, g = _mvgrl(), _graph()
+    tr.ensure_init(g)
+    diffusion, made = tr.aug2.augmentors[0].inner, []
+    rlap = diffusion.rlap
+    diffusion.rlap = lambda g, key: made.append(rlap(g, key)) or made[-1]
+    with trace(str(tmp_path / "fresh")):
+        tr.train_epoch(g)
+    fresh = tracing.counters()
+    spans = _spans(tmp_path / "fresh")
+    (lo, hi), = [(a, a - nd) for a, nd, n in spans if n == "trainer.views"]
+    (b0, b1), = [(a, a - nd) for a, nd, n in spans
+                 if n == "diffusion.build"]
+    assert lo <= b0 and b1 <= hi
+    parts = ["diffusion.rlap", "diffusion.ppr", "diffusion.topk"]
+    assert [n for _, _, n in _inside(spans, b0, b1, parts)] == parts
+    assert len(_inside(spans, lo, hi, ["mvgrl.subsample"])) == 1
+    assert fresh["diffusion.builds"] == 1
+    assert "diffusion.cache_hits" not in fresh
+    t = D._sym_norm_sparse(made[0], add_self_loop=False)
+    assert fresh["diffusion.spmm_edges"] == 32 * t.edge_capacity > 0
+    with trace(str(tmp_path / "cached")):
+        tr.train_epoch(g)
+    cached = tracing.counters()
+    assert cached["diffusion.cache_hits"] == 1
+    assert "diffusion.builds" not in cached
+    assert not [n for _, _, n in _spans(tmp_path / "cached")
+                if n.startswith("diffusion.")]
 
 
 def test_each_round_is_a_span_with_its_stages(tmp_path):
