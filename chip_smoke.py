@@ -41,7 +41,11 @@
    `spmm_plain` and of `torch.sparse.mm` on CSR (a yardstick the port
    never calls) beside twice `perfbench`'s `counts.spmm` bound, the two
    orders' build, and the kernel alone with and without the rows of more
-   than 256 in-edges.
+   than 256 in-edges. Then at the PPR series' shape (`spmm_ppr_case`:
+   T of an rLap complement of `mvgrl-pubmed`'s graph, S of width n =
+   19,717, a launch of 155 column tiles), holds forward and dx against
+   `spmm_plain` and bit-equal to their 128-column slices, and times the
+   product and the kernel alone beside S read once and written once.
 4. Probe phase. Holds the eight access kernels and the previous designs
    of C2, C3, C4, V2 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
    `scatter_min_atomic`, `take_axis0_l2`, `take_axis0_axis1_l2`) bit-equal
@@ -546,6 +550,83 @@ def spmm_phase(smi: str) -> dict:
         print(f"spmm at n={n} f={f}: {json.dumps(row)}", flush=True)
         res["widths"][f] = row
         del x, gy, rowptr, perm, col, wp, ptr2, perm2, col2, wp2
+    del csr, csr_t, gl, wn, view, g
+    torch.cuda.empty_cache()
+    res["ppr"] = spmm_ppr_case()
+    return res
+
+
+def spmm_ppr_case(seed: int = 2**33 + 5) -> dict:
+    """The kernel at the PPR series' shape, as `mvgrl-pubmed.train` runs
+    it: T of an rLap complement (frac 0.2, weights kept, no self-loops)
+    of the cell's graph (`perfbench/configs/mvgrl-pubmed.json`: 19,717
+    nodes, so f = n is odd and a launch spans many column tiles), weighted
+    (1 - alpha) T, over a dense S of width n. Holds forward and dx against
+    `spmm_plain` (rtol 1e-5 / atol 1e-5), one launch each, and bit-equal
+    to the same calls on contiguous 128-column slices (each a launch of
+    one tile, the last one ending at n); times the product (orders and
+    launch) and the kernel alone beside `counts.spmm`'s bound, S read once
+    and written once."""
+    from rlap_tpu_torch.augment.diffusion import _sym_norm_sparse
+    from perfbench.graphgen import make_graph
+    from perfbench.metrics.lib.counts import spmm as spmm_count
+
+    cfg = json.loads(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "perfbench", "configs",
+        "mvgrl-pubmed.json")).read())
+    g = make_graph(cfg["graph"], seed, torch.device("cuda"))
+    sc = RLap(FRAC, keep_weights=True, device="cuda")(
+        g, rng.key(seed, device="cuda"))
+    t = _sym_norm_sparse(sc, add_self_loop=False)
+    w = (1 - cfg["views"]["alpha"]) * t.weights
+    n = f = t.num_nodes
+    indeg = torch.bincount(t.receivers, minlength=n)
+    res = {"n": n, "nnz": t.edge_capacity, "max_row": int(indeg.max()),
+           "longest_one_warp_row": int(indeg[indeg <= HUB_CAP].max()),
+           "rows_over_256": int((indeg > HUB_CAP).sum())}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(n, f, generator=gen, device="cuda")
+    gy = torch.randn(n, f, generator=gen, device="cuda")
+
+    def fwd_bwd(fn, x, gy):
+        xx = x.detach().requires_grad_(True)
+        out = fn(t, xx, w)
+        out.backward(gy)
+        return out.detach(), xx.grad
+
+    res["column_tiles"] = S.column_tiles(x, torch.empty_like(x))
+    require(res["column_tiles"] > 1,
+            f"spmm at f = n = {n} launched {res['column_tiles']} tile")
+    S.reset_launch_counts()
+    got = fwd_bwd(S.spmm, x, gy)
+    require(S.launch_counts == {"spmm_fwd": 1, "spmm_bwd": 1},
+            f"spmm at f = n = {n} launched {S.launch_counts}")
+    ref = fwd_bwd(S.spmm_plain, x, gy)
+    res["max_abs_err"] = max(
+        close(f"spmm {part} f=n={n}", a, b, 1e-5, 1e-5)
+        for part, a, b in zip(("forward", "dx"), got, ref))
+    del ref
+    # the last slice ends at f: a rest under 32 columns would take the
+    # narrow kernel, which sums in another order
+    for c in [*range(0, f - 128, 128), f - 128]:
+        part = fwd_bwd(S.spmm, x[:, c:c + 128].contiguous(),
+                       gy[:, c:c + 128].contiguous())
+        require(all(torch.equal(a[:, c:c + 128], b)
+                    for a, b in zip(got, part)),
+                f"spmm at f = n = {n}: columns [{c}, {c + 128}) differ "
+                "from their own launch")
+    res["bit_equal_to_128_column_slices"] = True
+    del got
+    res["product_ms"] = cuda_ms(lambda: S.spmm(t, x, w), 5)
+    rowptr, perm, col = S.segment_order(t.receivers, t.senders, n)
+    wp = w[perm].contiguous()
+    res["kernel_alone_ms"] = cuda_ms(
+        lambda: S.segment_sum(x, rowptr, col, wp), 10)
+    res["bound_ms"] = 1e3 * spmm_count(n, t.edge_capacity, f).bytes \
+        / HBM_BYTES
+    print(f"spmm at the PPR series' shape: {json.dumps(res)}", flush=True)
+    del x, gy, rowptr, perm, col, wp
+    torch.cuda.empty_cache()
     return res
 
 

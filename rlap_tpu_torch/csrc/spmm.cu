@@ -34,6 +34,22 @@
 // H100 at F = 128, 0.73 ms with them and 0.29 without). Widths under 32 put the lanes over
 // the edges instead (one pass a feature) and reduce across the warp in a
 // fixed tree.
+//
+// A warp sums one tile of 32 * VEC * CH columns. The grid is 2-D: block
+// (x, y) takes rows x * ROWS + [0, ROWS) over column tile y alone, so a
+// row wider than a tile is as many warps as it has tiles. That is for the
+// PPR series (augment/diffusion.py), a product at F = n. At n = 19,717
+// (odd, so VEC 1: 155 tiles of 128 columns) T has rows of 200-255 edges,
+// just under LONG; on a 1-D grid each held one warp for 155 walks of its
+// edges, tens of thousands of dependent load rounds, and set the kernel's
+// length: 11-13.5 ms a product on an H100, against a floor of 0.93 ms (S
+// read once and written once at 3.35 TB/s); 2.05 ms on this grid.
+// blockIdx.x runs fastest, so all of tile 0's blocks are dispatched
+// before tile 1's: one tile's slice of x (n * 512 bytes, ~10 MB there)
+// stays in L2 while its gathers run, x is read from device memory about
+// once, and the gathers, E * F values, come from L2. Every width up to
+// one tile (the encoders' 128, 500 and 512) launches one tile: the grid
+// and blocks of a 1-D launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,12 +138,13 @@ __device__ __forceinline__ void add_edges(
   }
 }
 
-// One block, ROWS warps, for rows blockIdx.x * ROWS + [0, ROWS). A row of
-// at most LONG edges is its own warp's, over tiles of 32 * VEC * CH
-// features. A longer one (BA's hubs reach ~3k in-edges, and one warp's
-// loads in flight set how fast it walks them) is then the whole block's:
-// warp r sums the r-th of ROWS contiguous slices of its edges into shared
-// memory, and the slices' sums are added in the order r = 0, 1, ....
+// One block, ROWS warps, for rows blockIdx.x * ROWS + [0, ROWS) over the
+// TILE = 32 * VEC * CH columns from blockIdx.y * TILE. A row of at most
+// LONG edges is its own warp's. A longer one (BA's hubs reach ~3k
+// in-edges, and one warp's loads in flight set how fast it walks them) is
+// then the whole block's: warp r sums the r-th of ROWS contiguous slices
+// of its edges into shared memory, and the slices' sums are added in the
+// order r = 0, 1, ....
 constexpr int LONG = 32 * ROWS;
 
 template <typename T, int VEC, int CH, int U>
@@ -140,22 +157,21 @@ spmm_rows_kernel(const T* __restrict__ x, const int* __restrict__ rowptr,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * ROWS;
   const int row = row0 + warp;
+  const int t0 = blockIdx.y * TILE;
   if (row < n) {  // warp-uniform
     const int beg = rowptr[row], end = rowptr[row + 1];
     if (end - beg <= LONG) {
-      for (int t0 = 0; t0 < f; t0 += TILE) {
-        T acc[CH][VEC] = {};
-        add_edges<T, VEC, CH, U>(acc, x, col, w, beg, end, n, f, t0, lane);
+      T acc[CH][VEC] = {};
+      add_edges<T, VEC, CH, U>(acc, x, col, w, beg, end, n, f, t0, lane);
 #pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          const int off = t0 + (c * 32 + lane) * VEC;
-          if (off < f) {
-            Pack<T, VEC> o;
+      for (int c = 0; c < CH; ++c) {
+        const int off = t0 + (c * 32 + lane) * VEC;
+        if (off < f) {
+          Pack<T, VEC> o;
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) o.v[v] = acc[c][v];
-            *reinterpret_cast<Pack<T, VEC>*>(
-                out + static_cast<size_t>(row) * f + off) = o;
-          }
+          for (int v = 0; v < VEC; ++v) o.v[v] = acc[c][v];
+          *reinterpret_cast<Pack<T, VEC>*>(
+              out + static_cast<size_t>(row) * f + off) = o;
         }
       }
     }
@@ -168,23 +184,21 @@ spmm_rows_kernel(const T* __restrict__ x, const int* __restrict__ rowptr,
         static_cast<long long>(len) * warp / ROWS);
     const int hi = beg + static_cast<int>(
         static_cast<long long>(len) * (warp + 1) / ROWS);
-    for (int t0 = 0; t0 < f; t0 += TILE) {
-      T acc[CH][VEC] = {};
-      add_edges<T, VEC, CH, U>(acc, x, col, w, lo, hi, n, f, t0, lane);
+    T acc[CH][VEC] = {};
+    add_edges<T, VEC, CH, U>(acc, x, col, w, lo, hi, n, f, t0, lane);
 #pragma unroll
-      for (int c = 0; c < CH; ++c)
+    for (int c = 0; c < CH; ++c)
 #pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          part[warp][(c * 32 + lane) * VEC + v] = acc[c][v];
-      __syncthreads();
-      for (int i = threadIdx.x; i < TILE && t0 + i < f; i += ROWS * 32) {
-        T sum = part[0][i];
+      for (int v = 0; v < VEC; ++v)
+        part[warp][(c * 32 + lane) * VEC + v] = acc[c][v];
+    __syncthreads();
+    for (int i = threadIdx.x; i < TILE && t0 + i < f; i += ROWS * 32) {
+      T sum = part[0][i];
 #pragma unroll
-        for (int q = 1; q < ROWS; ++q) sum += part[q][i];
-        out[static_cast<size_t>(row0 + r) * f + t0 + i] = sum;
-      }
-      __syncthreads();
+      for (int q = 1; q < ROWS; ++q) sum += part[q][i];
+      out[static_cast<size_t>(row0 + r) * f + t0 + i] = sum;
     }
+    __syncthreads();
   }
 }
 
@@ -211,21 +225,52 @@ spmm_narrow_kernel(const T* __restrict__ x, const int* __restrict__ rowptr,
   }
 }
 
+// CH, the chunks of 32 x VEC columns in a warp's tile, for width f: U * CH
+// = 8 loads of VEC values in flight a lane
+int chunks(int f, int vec) {
+  const int c = (f + 32 * vec - 1) / (32 * vec);
+  return c <= 1 ? 1 : c <= 2 ? 2 : 4;
+}
+
+// VEC of the launch for x and out at width f: 16 bytes over sizeof(T)
+// where rows and pointers allow, 1 where not, 0 for the narrow kernel
+template <typename T>
+int vec_of(const void* x, const void* out, int f) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (f < 32) return 0;
+  const bool aligned = f % VEC == 0
+      && reinterpret_cast<uintptr_t>(x) % 16 == 0
+      && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return aligned ? VEC : 1;
+}
+
+// the column tiles of the launch, its gridDim.y (1 for the narrow kernel)
+template <typename T>
+int column_tiles(const void* x, const void* out, int f) {
+  const int vec = vec_of<T>(x, out, f);
+  if (vec == 0) return 1;
+  const int tile = 32 * vec * chunks(f, vec);
+  return (f + tile - 1) / tile;
+}
+
 template <typename T, int VEC>
 void launch_rows(const T* x, const int* rowptr, const int* col, const T* w,
                  T* out, int n, int f, cudaStream_t s) {
-  const dim3 grid((n + ROWS - 1) / ROWS), block(ROWS * 32);
-  const int chunks = (f + 32 * VEC - 1) / (32 * VEC);
-  // U * CH = 8 loads of VEC values in flight a lane
-  if (chunks <= 1)
-    spmm_rows_kernel<T, VEC, 1, 8><<<grid, block, 0, s>>>(x, rowptr, col, w,
-                                                          out, n, f);
-  else if (chunks <= 2)
-    spmm_rows_kernel<T, VEC, 2, 4><<<grid, block, 0, s>>>(x, rowptr, col, w,
-                                                          out, n, f);
-  else
-    spmm_rows_kernel<T, VEC, 4, 2><<<grid, block, 0, s>>>(x, rowptr, col, w,
-                                                          out, n, f);
+  const dim3 grid((n + ROWS - 1) / ROWS, column_tiles<T>(x, out, f));
+  const dim3 block(ROWS * 32);
+  switch (chunks(f, VEC)) {
+    case 1:
+      spmm_rows_kernel<T, VEC, 1, 8><<<grid, block, 0, s>>>(x, rowptr, col,
+                                                            w, out, n, f);
+      break;
+    case 2:
+      spmm_rows_kernel<T, VEC, 2, 4><<<grid, block, 0, s>>>(x, rowptr, col,
+                                                            w, out, n, f);
+      break;
+    default:
+      spmm_rows_kernel<T, VEC, 4, 2><<<grid, block, 0, s>>>(x, rowptr, col,
+                                                            w, out, n, f);
+  }
 }
 
 template <typename T>
@@ -239,16 +284,16 @@ int spmm_csr(const void* xp, const void* rowptrp, const void* colp,
   T* out = static_cast<T*>(outp);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int VEC = 16 / sizeof(T);
-  const bool aligned = f % VEC == 0
-      && reinterpret_cast<uintptr_t>(x) % 16 == 0
-      && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (f < 32) {
-    spmm_narrow_kernel<T><<<(n + ROWS - 1) / ROWS, ROWS * 32, 0, s>>>(
-        x, rowptr, col, w, out, n, f);
-  } else if (aligned) {
-    launch_rows<T, VEC>(x, rowptr, col, w, out, n, f, s);
-  } else {
-    launch_rows<T, 1>(x, rowptr, col, w, out, n, f, s);
+  switch (vec_of<T>(xp, outp, f)) {
+    case 0:
+      spmm_narrow_kernel<T><<<(n + ROWS - 1) / ROWS, ROWS * 32, 0, s>>>(
+          x, rowptr, col, w, out, n, f);
+      break;
+    case VEC:
+      launch_rows<T, VEC>(x, rowptr, col, w, out, n, f, s);
+      break;
+    default:
+      launch_rows<T, 1>(x, rowptr, col, w, out, n, f, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -267,6 +312,16 @@ int spmm_csr_f32(const void* x, const void* rowptr, const void* col,
 int spmm_csr_f64(const void* x, const void* rowptr, const void* col,
                  const void* w, void* out, int n, int f, void* stream) {
   return spmm_csr<double>(x, rowptr, col, w, out, n, f, stream);
+}
+
+// the column tiles (gridDim.y) of the launch above for x and out at width
+// f: more than 1 where a row is wider than a warp's tile
+int spmm_csr_tiles_f32(const void* x, const void* out, int f) {
+  return column_tiles<float>(x, out, f);
+}
+
+int spmm_csr_tiles_f64(const void* x, const void* out, int f) {
+  return column_tiles<double>(x, out, f);
 }
 
 }  // extern "C"

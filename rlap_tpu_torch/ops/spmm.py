@@ -6,7 +6,10 @@ spmm.cu`): a segment-sum over the edges sorted by receiver, each output
 row summed in registers in edge order and written once; its backward is
 the same kernel over the edges sorted by sender. It reads no padding slot
 and uses no atomics, so its float sums are taken in a fixed order and the
-same inputs give the same bits, call after call. `segment_order` builds
+same inputs give the same bits, call after call. A row wider than one
+warp's tile of columns (the PPR series' S, at width n) is split over the
+launch's column tiles, a warp each; each element is still summed in
+edge order. `segment_order` builds
 each order on the card, with no read-back to the host. `spmm_plain` is the
 plain PyTorch version (gather, scale and `index_add_` into n+1 rows, then
 drop the sentinel row), which the wrapper runs for tensors on the CPU; for
@@ -35,6 +38,8 @@ _STEM = "spmm"
 SOURCE = _build.source_path(_STEM)
 KERNELS = ("spmm_fwd", "spmm_bwd")
 _LAUNCHERS = {torch.float32: "spmm_csr_f32", torch.float64: "spmm_csr_f64"}
+_TILES = {torch.float32: "spmm_csr_tiles_f32",
+          torch.float64: "spmm_csr_tiles_f64"}
 
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -58,6 +63,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in _LAUNCHERS.values():
         getattr(lib, name).argtypes = [ptr] * 5 + [i32, i32, ptr]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in _TILES.values():
+        getattr(lib, name).argtypes = [ptr, ptr, i32]
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -94,13 +102,26 @@ def segment_sum(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
     return out
 
 
+def column_tiles(x: torch.Tensor, out: torch.Tensor) -> int:
+    """The column tiles of `segment_sum`'s launch from `x` into `out`
+    (`csrc/spmm.cu`'s own count, its grid's y): 1 where each row's
+    columns fit one warp's tile."""
+    lib = _build.load(_STEM, _declare)
+    return getattr(lib, _TILES[x.dtype])(x.data_ptr(), out.data_ptr(),
+                                         x.shape[1])
+
+
 def _segment_sum(name: str, x: torch.Tensor, keys: torch.Tensor,
                  other: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """out[i] = sum over the edges e with keys[e] == i of w[e] *
-    x[other[e]], by the kernel; `name` is the launch it counts as."""
+    x[other[e]], by the kernel; `name` is the launch it counts as. While
+    a profiler records, counts `spmm.tiled`: 1 where the launch's grid
+    has more than one column tile, else 0."""
     rowptr, perm, col = segment_order(keys, other, x.shape[0])
     out = segment_sum(x, rowptr, col, w[perm].to(x.dtype))
     launch_counts[name] += 1
+    if tracing.recording():
+        tracing.count("spmm.tiled", int(column_tiles(x, out) > 1))
     return out
 
 
@@ -159,7 +180,9 @@ def spmm(g: Graph, x: torch.Tensor,
     counts the slots the call takes in (`spmm.slots`: the edge capacity)
     and the padding slots its aggregation reads (`spmm.padding`): every
     one in `spmm_plain`, which gathers the sentinel row for each, and none
-    in the kernel."""
+    in the kernel; and, on the card, the kernel's launches (forward and
+    dx) whose grid has more than one column tile (`spmm.tiled`: rows
+    wider than a warp's tile, such as the PPR series' at width n)."""
     if mesh is not None:
         from rlap_tpu_torch.parallel.spmm import spmm_edge_partitioned
 

@@ -17,7 +17,12 @@ and a raise on bf16 and on a non-contiguous input. float32 within rtol
 1e-5 / atol 1e-5 of `spmm_plain` (short rows of unit-scale products,
 summed in another order than `index_add`'s), float64 within 1e-12; the
 rows of 5000 edges against float64, within the bound of float32
-summation in any order. This file imports JAX only inside
+summation in any order; at a width of several column tiles (f = n =
+1063, odd, so 4-byte loads), forward and dx bit-equal to the same calls
+on contiguous 128-column slices, on a graph with a row of 250 edges, one
+of 300, empty rows and padding (float32 against float64 within the
+summation bound, as the long rows), and the `spmm.tiled` counter one a
+launch there and none at f = 128 and 512. This file imports JAX only inside
 the test that compares with it, so on a machine with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_spmm_kernel.py -q -m cuda
@@ -264,10 +269,15 @@ def test_cuda_kernel_rows_longer_than_a_block(f):
               num_nodes=n)
     xn, gy = r.normal(size=(n, f)), r.normal(size=(n, f))
     got, _ = _both(g, xn, gy, torch.float32)
-    # against float64, within the bound of any order of m float32 additions
-    # of these products, the inputs and each product rounded to float32 on
-    # the way: |err| <= (m + 3) 2^-24 sum |product| (m: the longest row for
-    # out and dx, f for the per-edge dots of d(weights))
+    _assert_float32_bound(g, xn, gy, w, got, hub + 1)
+
+
+def _assert_float32_bound(g, xn, gy, w, got, m):
+    """`got` (the float32 kernel path's out, dx and d(weights)) against
+    float64, within the bound of any order of m float32 additions of these
+    products, the inputs and each product rounded to float32 on the way:
+    |err| <= (m + 3) 2^-24 sum |product| (m: the longest row for out and
+    dx, f for the per-edge dots of d(weights))."""
     ref, bnd = [], []
     for vals in ((xn, gy, w), (np.abs(xn), np.abs(gy), np.abs(w))):
         x = torch.tensor(vals[0], device="cuda", requires_grad=True)
@@ -276,9 +286,9 @@ def test_cuda_kernel_rows_longer_than_a_block(f):
         (out * torch.tensor(vals[1], device="cuda")).sum().backward()
         (ref if vals[0] is xn else bnd).extend(
             [out.detach(), x.grad, wt.grad])
-    for a, b, m, terms in zip(got, ref, (hub + 1, hub + 1, f), bnd):
+    for a, b, mm, terms in zip(got, ref, (m, m, xn.shape[1]), bnd):
         assert bool(((a.double() - b).abs()
-                     <= (m + 3) * 2.0**-24 * terms).all())
+                     <= (mm + 3) * 2.0**-24 * terms).all())
 
 
 @pytest.mark.cuda
@@ -330,3 +340,95 @@ def test_cuda_spmm_never_falls_back_and_refuses_what_it_cannot_take(
         S.spmm(g, torch.randn(32, n, device="cuda").T)
     with pytest.raises(ValueError):
         S.spmm(g, x.cpu())
+
+
+def _tiled_graph(n, dtype):
+    """Node 0 receives and node 2 sends 250 edges (a row just under the 256
+    a block's warps split), node 1 receives and node 3 sends 300, and no
+    other edge touches nodes 0-3; nodes [n // 2, n) receive nothing and
+    send nothing; 40 padding slots."""
+    r = np.random.default_rng(n)
+    half = n // 2
+    rest = 3 * n
+    s = np.concatenate([r.integers(4, half, 550), np.full(250, 2),
+                        np.full(300, 3), r.integers(4, half, rest),
+                        np.full(40, n)])
+    d = np.concatenate([np.zeros(250, np.int64), np.ones(300, np.int64),
+                        r.integers(4, half, 550), r.integers(4, half, rest),
+                        np.full(40, n)])
+    w = np.where(s < n, r.normal(size=s.shape[0]), 0.0)
+    p = r.permutation(s.shape[0])
+    return Graph(senders=torch.tensor(s[p], device="cuda"),
+                 receivers=torch.tensor(d[p], device="cuda"),
+                 weights=torch.tensor(w[p], dtype=dtype, device="cuda"),
+                 num_nodes=n)
+
+
+def _fwd_dx(g, x, gy):
+    """`spmm`'s output and dx, and the `spmm.tiled` count of the two
+    launches, under a profiler."""
+    from rlap_tpu_torch.utils import tracing
+
+    tracing.counters()
+    xx = x.detach().clone().requires_grad_(True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = S.spmm(g, xx)
+        out.backward(gy)
+        torch.cuda.synchronize()
+    return out.detach(), xx.grad, tracing.counters().get("spmm.tiled")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_wider_than_a_tile_is_its_slices_bit_for_bit(dtype):
+    """f = n = 1063 (the PPR series' product, S over T, at a small n): the
+    launch spans 9 column tiles of 128 and each of its rows is split over
+    them; forward and dx equal, bit for bit, the concatenation of calls on
+    the contiguous 128-column slices (and the 39-column rest), each a
+    launch of one tile. float64 within 1e-12 of `spmm_plain`; float32, with
+    rows of 250 and 300 edges, within the float32 summation bound the rows
+    of 5000 edges are held to."""
+    _needs_card()
+    n = f = 1063
+    g = _tiled_graph(n, dtype)
+    live = g.senders < n
+    indeg = torch.bincount(g.receivers[live], minlength=n)
+    outdeg = torch.bincount(g.senders[live], minlength=n)
+    assert indeg[:2].tolist() == [250, 300]
+    assert outdeg[2:4].tolist() == [250, 300]
+    assert int(indeg[2:].max()) <= 256 and int(outdeg[4:].max()) <= 256
+    r = np.random.default_rng(11)
+    x = torch.tensor(r.normal(size=(n, f)), dtype=dtype, device="cuda")
+    gy = torch.tensor(r.normal(size=(n, f)), dtype=dtype, device="cuda")
+    out, dx, tiled = _fwd_dx(g, x, gy)
+    assert tiled == 2.0
+    parts = [_fwd_dx(g, x[:, c:c + 128].contiguous(),
+                     gy[:, c:c + 128].contiguous())
+             for c in range(0, f, 128)]
+    assert all(t == 0.0 for _, _, t in parts)
+    assert torch.equal(out, torch.cat([p[0] for p in parts], 1))
+    assert torch.equal(dx, torch.cat([p[1] for p in parts], 1))
+    xn, gn = x.cpu().numpy(), gy.cpu().numpy()
+    got, ref = _both(g, xn, gn, dtype)
+    assert torch.equal(got[0], out) and torch.equal(got[1], dx)
+    if dtype == torch.float64:
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    else:   # rows of 300 edges: the bound of float32 summation
+        _assert_float32_bound(g, xn, gn, g.weights.double().cpu().numpy(),
+                              got, 301)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [128, 512])
+def test_cuda_kernel_launches_one_tile_at_the_encoders_widths(f):
+    """The encoders' widths fit one warp's tile: no launch counts as
+    tiled, forward or dx."""
+    _needs_card()
+    n = 3000
+    g = _graph(n, "sentinel_ends", seed=f, dtype=torch.float32,
+               device="cuda")
+    x = torch.randn(n, f, device="cuda")
+    assert S.column_tiles(x, torch.empty_like(x)) == 1
+    assert _fwd_dx(g, x, torch.randn(n, f, device="cuda"))[2] == 0.0
