@@ -7,13 +7,12 @@
    TF32 is switched off for matmuls and cuDNN, so every float32 product
    (the plain versions included) runs in full float32.
 2. Builds the three kernel libraries with nvcc, side by side: the InfoNCE
-   kernels (`rlap_tpu_torch/csrc/infonce.cu`), the access probes
-   (`rlap_tpu_torch/csrc/access.cu`: the eight, and the previous designs
-   of C2, C3, C4, V2 and V4) and the SpMM (`rlap_tpu_torch/csrc/
+   kernels (`rlap_tpu_torch/csrc/infonce.cu`), the eight access probes
+   (`rlap_tpu_torch/csrc/access.cu`) and the SpMM (`rlap_tpu_torch/csrc/
    spmm.cu`), and prints ptxas's resource lines
    (registers, spills, static shared memory) and remarks, one line each
-   for the redesigned C2, C3, C4, V1, V2 and V4 kernels, the dynamic
-   shared memory of the tensor-core kernels, of the C2, C3 and V4
+   for the redesigned C2, C3, C4, V1 and V2 kernels, the dynamic
+   shared memory of the tensor-core kernels, of the C2 and C3
    clusters and of V2's slabs, and how many
    `wgmma` (HGMMA) and full
    waits behind them (WARPGROUP.DEPBAR) the machine code of each `wgmma`
@@ -46,33 +45,27 @@
    19,717, a launch of 155 column tiles), holds forward and dx against
    `spmm_plain` and bit-equal to their 128-column slices, and times the
    product and the kernel alone beside S read once and written once.
-4. Probe phase. Holds the eight access kernels and the previous designs
-   of C2, C3, C4, V2 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
-   `scatter_min_atomic`, `take_axis0_l2`, `take_axis0_axis1_l2`) bit-equal
-   against their plain versions at a ragged shape (n=1000, E=12345, M=97
-   index tiles; C3's cluster is 1 block), one launch counted per call;
-   holds C1 and both designs of C2 (and V1, both designs of V2 and V4,
-   and V3, on the stream's whole rows of 128), both scatter-mins and both
-   scalar walks
-   bit-equal
-   on the index stream of the rLap selection on BA(n, m=8) (both
-   endpoints of the canonical edge pool; C3 on its first 8192 gather
-   indices, a cluster of 2) and times them beside torch's `index_select`
-   and `scatter_reduce_`, with the atomics C4's merge leaves, and the
-   selection itself as the port runs it in a view's first round; then
-   drives the probe entry point `rlap_tpu_torch.bench.probe_access.run`
-   at n=100000, E=1600000 with the access counts set to 0 just before
-   and read just after. The entry point holds each kernel bit-equal at
-   that shape before it times it; holds C2 and V4 bit-equal at every
-   cluster size of 2, 4 and 8 and times them there, with the clusters
-   launched, the bytes staged and cluster 0's staging and lookup spans;
-   holds V2
-   bit-equal at slabs of 32 and 16 columns and times it there, with its
-   spans; reads V1's load and select spans; times C1, V1 and both
-   designs of C2, V2 and V4 again on twice the indices, for their rate of reads
-   apart from launch, staging and tail; and reads C3's
-   staging and walk cycles and its local and remote
-   reads on random, block-0-only and other-block-only indices.
+4. Probe phase. Holds the eight access kernels bit-equal against their
+   plain versions at a ragged shape (n=1000, E=12345, M=97 index tiles;
+   C3's cluster is 1 block), one launch counted per call; holds C1, C2
+   (and V1, V2, V3 and V4, on the stream's whole rows of 128), C4 and C3
+   bit-equal on the index stream of the rLap selection on BA(n, m=8)
+   (both endpoints of the canonical edge pool; C3 on its first 8192
+   gather indices, a cluster of 2) and times them beside torch's
+   `index_select` and `scatter_reduce_`, with the atomics C4's merge
+   leaves, and the selection itself as the port runs it in a view's
+   first round; then drives the probe entry point
+   `rlap_tpu_torch.bench.probe_access.run` at n=100000, E=1600000 with
+   the access counts set to 0 just before and read just after. The entry
+   point holds each kernel bit-equal at that shape before it times it;
+   holds C2 bit-equal at every cluster size of 2, 4 and 8 and times it
+   there, with the clusters launched, the bytes staged and cluster 0's
+   staging and lookup spans; holds V2 bit-equal at slabs of 32 and 16
+   columns and times it there, with its spans; reads V1's load and
+   select spans; times C1, C2, V1, V2 and V4 again on twice the indices,
+   for their rate of reads apart from launch, staging and tail; and
+   reads C3's staging and walk cycles and its local and remote reads on
+   random, block-0-only and other-block-only indices.
 5. Checks that `approximate_cholesky(barabasi_albert(2000, 8), rng.key(0),
    400)` runs with no `device=` anywhere.
 6. Drives the training path: GraceTrainer(Compose([RLap(0.2),
@@ -147,7 +140,7 @@
    t = n/2 call beside the single-device `eliminate`'s.
 10. Prints one JSON line of the SpMM phase, one of the probe, one of the
    main path, one of each bench, one of the CLI phase, one of the sharded
-   phase, one of all eleven kernels, the seven other designs and the SpMM
+   phase, one of all eleven kernels and the SpMM
    (each row with the card's name and power limit), the nvidia-smi line,
    and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -237,17 +230,12 @@ REPLACES = {
     "infonce_bwd_db": "rlap_tpu/ops/infonce_pallas.py:104",
     "take": "tools/probe_access.py:139",
     "take_two_level": "tools/probe_access.py:180",
-    "take_two_level_chunks": "tools/probe_access.py:180",
     "take_scalar": "tools/probe_access.py:215",
     "scatter_min": "tools/probe_access.py:251",
-    "take_scalar_l2": "tools/probe_access.py:215",
-    "scatter_min_atomic": "tools/probe_access.py:251",
     "take2d": "tools/probe_access2.py:53",
     "take_axis0": "tools/probe_access2.py:102",
-    "take_axis0_l2": "tools/probe_access2.py:102",
     "take_axis1": "tools/probe_access2.py:143",
     "take_axis0_axis1": "tools/probe_access2.py:194",
-    "take_axis0_axis1_l2": "tools/probe_access2.py:194",
 }
 TOL = {"infonce_fwd": (1e-5, 1e-5), "infonce_bwd_da": (1e-4, 1e-6),
        "infonce_bwd_db": (1e-4, 1e-6)}
@@ -650,9 +638,9 @@ def probe_phase(g) -> tuple:
     then the probe entry point with its launches counted. Returns (the
     entry point's result, launches per kernel in its run)."""
     errs = P.check(P.make_inputs(RAGGED_N, RAGGED_E, RAGGED_M, 1, "cuda", 1))
-    print(f"access kernels and previous variants bit-equal to their plain "
-          f"versions at n={RAGGED_N} E={RAGGED_E} M={RAGGED_M} (C3: a "
-          f"cluster of {A.scalar_plan(RAGGED_N, P.TILE).blocks}): max abs "
+    print(f"access kernels bit-equal to their plain versions at "
+          f"n={RAGGED_N} E={RAGGED_E} M={RAGGED_M} (C3: a cluster of "
+          f"{A.scalar_plan(RAGGED_N, P.TILE).blocks}): max abs "
           f"err {json.dumps(errs)}", flush=True)
 
     # _select gathers pack[dst] and scatter-mins it into nmin[src], over
@@ -681,9 +669,7 @@ def probe_phase(g) -> tuple:
     stream["take_scalar_cluster"] = A.scalar_plan(n, P.TILE).blocks
     stream["take_two_level_plan"] = A.table_plan(-(-n // A.LANES)
                                                  * A.LANES)._asdict()
-    print(f"rlap_select_stream BA(n={n}, m=8), C1, V1, V3, both designs of "
-          f"C2, V2 and V4, both scatter-mins and both scalar walks "
-          f"bit-equal: "
+    print(f"rlap_select_stream BA(n={n}, m=8), C1-C4 and V1-V4 bit-equal: "
           f"{json.dumps(stream)}", flush=True)
 
     A.reset_launch_counts()
@@ -702,13 +688,12 @@ def probe_phase(g) -> tuple:
           f"{cyc['plan']['blocks']} ({json.dumps(cyc['plan'])}), "
           f"{cyc['sm_clock_khz']} kHz: " + "; ".join(parts), flush=True)
     khz = cyc["sm_clock_khz"]
-    for kname, rows in res["by_cluster"].items():
-        print(f"{kname} by cluster at n={PROBE_N}: " + "; ".join(
-            f"k={k} {r['ms']:.5f} ms, {r['clusters']} clusters, "
-            f"{r['staged_bytes']} bytes staged, stage {r['stage_cycles']} "
-            f"({r['stage_cycles'] / khz:.5f} ms) lookup "
-            f"{r['lookup_cycles']} ({r['lookup_cycles'] / khz:.5f} ms) "
-            f"cycles" for k, r in rows.items()), flush=True)
+    print(f"take_two_level by cluster at n={PROBE_N}: " + "; ".join(
+        f"k={k} {r['ms']:.5f} ms, {r['clusters']} clusters, "
+        f"{r['staged_bytes']} bytes staged, stage {r['stage_cycles']} "
+        f"({r['stage_cycles'] / khz:.5f} ms) lookup "
+        f"{r['lookup_cycles']} ({r['lookup_cycles'] / khz:.5f} ms) "
+        f"cycles" for k, r in res["by_cluster"].items()), flush=True)
     print(f"take_axis0 by plan at n={PROBE_N}: " + "; ".join(
         f"{k} {r['ms']:.5f} ms, " + json.dumps(
             {x: y for x, y in r.items() if x != "ms"})
@@ -723,21 +708,19 @@ def probe_phase(g) -> tuple:
           f"ms, staging {r['stage_cycles']} of "
           f"{r['stage_cycles'] + r['lookup_cycles']} cycles, {r['blocks']} "
           f"blocks", flush=True)
-    for name in ("take_two_level", "take_axis0_axis1"):
-        r = res["kernels"][name]
-        print(f"{name} default plan {json.dumps(r['plan'])}: {r['ms']:.5f} "
-              f"ms, staging {r['stage_cycles']} of "
-              f"{r['stage_cycles'] + r['lookup_cycles']} cycles "
-              f"({r['stage_share']:.3f}), {r['clusters']} clusters, "
-              f"{r['lookup_reads_per_s']:.4g} reads/s over the lookup span",
-              flush=True)
+    r = res["kernels"]["take_two_level"]
+    print(f"take_two_level default plan {json.dumps(r['plan'])}: "
+          f"{r['ms']:.5f} ms, staging {r['stage_cycles']} of "
+          f"{r['stage_cycles'] + r['lookup_cycles']} cycles "
+          f"({r['stage_share']:.3f}), {r['clusters']} clusters, "
+          f"{r['lookup_reads_per_s']:.4g} reads/s over the lookup span",
+          flush=True)
     print(f"read rates at n={PROBE_N} (E and 2E indices; reads/s of the "
           f"added E, and the fixed ms): " + "; ".join(
               f"{k} {r['ms']:.5f} / {r['ms_twice']:.5f} ms, "
               f"{r['reads_per_s']} reads/s, fixed {r['fixed_ms']:.5f}"
               for k, r in res["read_rates"].items()), flush=True)
-    for name in A.NAMES:
-        row = {**res["kernels"], **res["previous"]}[name]
+    for name, row in res["kernels"].items():
         # the entry point's own comparison with the plain version is one
         # more launch than the timed and cycle-counting ones it reports
         require(row["launches"] > 0 and launches[name] == row["launches"] + 1,
@@ -1504,9 +1487,8 @@ def main(argv=None) -> int:
             "take_two_level_cluster_kernel",
             "take_scalar_cluster_kernel", "fill_trigger_kernel",
             "scatter_min_merged_kernel", "take2d_kernel",
-            "take_axis0_slab_kernel",
-            "take_axis0_axis1_shuffle_kernel")).items():
-        print(f"  ptxas, redesigned C2 / C3 / C4 / V1 / V2 / V4: "
+            "take_axis0_slab_kernel")).items():
+        print(f"  ptxas, redesigned C2 / C3 / C4 / V1 / V2: "
               f"{kname}: "
               f"{usage}", flush=True)
     plan = A.scalar_plan(PROBE_N, P.TILE)
@@ -1514,10 +1496,10 @@ def main(argv=None) -> int:
           f"n={PROBE_N}: {plan.smem} bytes a block, a cluster of "
           f"{plan.blocks}", flush=True)
     nt = -(-PROBE_N // A.LANES) * A.LANES
-    print(f"  dynamic shared memory of take_two_level_cluster_kernel and "
-          f"take_axis0_axis1_shuffle_kernel at n={PROBE_N}, by cluster "
-          f"size: " + ", ".join(f"k={k} {A.table_plan(nt, k).smem} bytes "
-                                f"a block" for k in P.SWEEP), flush=True)
+    print(f"  dynamic shared memory of take_two_level_cluster_kernel at "
+          f"n={PROBE_N}, by cluster size: " + ", ".join(
+              f"k={k} {A.table_plan(nt, k).smem} bytes a block"
+              for k in P.SWEEP), flush=True)
     print(f"  dynamic shared memory of take_axis0_slab_kernel at n={PROBE_N}, "
           f"by slab width: " + ", ".join(
               f"{c} columns {A.slab_plan(nt, c).smem} bytes a block"
@@ -1574,8 +1556,7 @@ def main(argv=None) -> int:
                        for label, counts in sharded_launches.items()}},
                 "n": args.n, "f": f, "card": smi, **rows[name]}
                for name in K.KERNELS]
-    for name in A.NAMES:
-        row = {**probe["kernels"], **probe["previous"]}[name]
+    for name, row in probe["kernels"].items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "rlap_tpu_torch/csrc/access.cu",
@@ -1583,7 +1564,7 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["yardstick_ms"],
-            "previous_design": name in A.PREVIOUS, "card": smi,
+            "card": smi,
             "shape": {"table": probe["n"], "indices": row["elements"]}})
         if name == "take_axis0":
             kernels[-1].update(
@@ -1597,13 +1578,13 @@ def main(argv=None) -> int:
         if name in ("take", "take2d"):
             kernels[-1]["rlap_stream_ms"] = \
                 probe["rlap_select_stream"][f"{name}_ms"]
-        if name in ("take_two_level", "take_axis0_axis1"):
+        if name == "take_two_level":
             kernels[-1].update(
                 plan=row["plan"], stage_share=row["stage_share"],
                 clusters=row["clusters"],
                 lookup_reads_per_s=row["lookup_reads_per_s"],
                 ms_by_cluster={k: r["ms"] for k, r in
-                               probe["by_cluster"][name].items()})
+                               probe["by_cluster"].items()})
         if name in P.RATED:
             kernels[-1]["read_rate"] = probe["read_rates"][name]
         if name == "take_scalar":

@@ -14,26 +14,22 @@ size n and index count E of a graph (defaults: BA(100k, m=8)):
      and on sorted indices;
   D. `torch.sort` of E keys with two payloads;
   C1-C4, V1-V4. the eight hand-written kernels of
-     `rlap_tpu_torch/ops/access.py`, and the previous designs of C2, C3,
-     C4, V2 and V4 (`take_two_level_chunks`, `take_scalar_l2`,
-     `scatter_min_atomic`, `take_axis0_l2`, `take_axis0_axis1_l2`), each
-     held bit-equal against
-     its plain version first, then timed beside that plain version and a
-     yardstick: A1 for the lookups, `index_select` of the same 8192
-     indices for C3, B2 for the scatter-mins, advanced indexing
+     `rlap_tpu_torch/ops/access.py`, each held bit-equal against its plain
+     version first, then timed beside that plain version and a yardstick:
+     A1 for the lookups, `index_select` of the same 8192 indices for C3,
+     B2 for the scatter-min, advanced indexing
      `tab2d[rows0[:, None], lanes]` for V1, `take_along_dim` for V2-V4,
-     all on
-     ready-made int64 indices; on the card also V1's load and select
-     spans;
-  C2/V4 by cluster. C2 and V4 at every cluster size of (2, 4, 8) whose
-     shared memory holds the table, each held bit-equal first: ms,
-     clusters launched, bytes staged and (on the card) cluster 0's staging
-     and lookup spans in SM cycles, and the lookup's rate of reads;
+     all on ready-made int64 indices; on the card also V1's load and
+     select spans;
+  C2 by cluster. C2 at every cluster size of (2, 4, 8) whose shared
+     memory holds the table, held bit-equal first: ms, clusters launched,
+     bytes staged and (on the card) cluster 0's staging and lookup spans
+     in SM cycles, and the lookup's rate of reads;
   V2 by slab. V2 at slabs of 32 and 16 columns, the same way: ms, and on
      the card block 0's staging and lookup spans and the bytes staged;
-  Read rates. C1, V1 and both designs of C2, V2 and V4 timed again on twice
-     the indices (each set and the next, end to end): E over the added
-     time is the rate of reads with the launch, the staging and the tail
+  Read rates. C1, C2, V1, V2 and V4 timed again on twice the indices
+     (each set and the next, end to end): E over the added time is the
+     rate of reads with the launch, the staging and the tail
      taken out, and 2 t(E) - t(2E) is that fixed part;
   C3 cycles. the staging and walk spans of `take_scalar` in SM cycles, on
      random indices and, where the table spans more than one block, on
@@ -138,21 +134,13 @@ def _calls(inp: dict) -> Dict[str, tuple]:
         "take": (A.take, A.take_plain, one_d),
         "take_two_level": (A.take_two_level, A.take_two_level_plain,
                            two_level),
-        "take_two_level_chunks": (A.take_two_level_chunks,
-                                  A.take_two_level_plain, two_level),
         "take_scalar": (A.take_scalar, A.take_plain, scalar),
         "scatter_min": (A.scatter_min, A.scatter_min_plain, scatter),
         "take2d": (A.take2d, A.take2d_plain, tiles),
         "take_axis0": (A.take_axis0, A.take_axis0_plain, tiles),
-        "take_axis0_l2": (A.take_axis0_l2, A.take_axis0_plain, tiles),
         "take_axis1": (A.take_axis1, A.take_axis1_plain, tiles),
         "take_axis0_axis1": (A.take_axis0_axis1, A.take_axis0_axis1_plain,
                              tiles),
-        "take_axis0_axis1_l2": (A.take_axis0_axis1_l2,
-                                A.take_axis0_axis1_plain, tiles),
-        "take_scalar_l2": (A.take_scalar_l2, A.take_plain, scalar),
-        "scatter_min_atomic": (A.scatter_min_atomic, A.scatter_min_plain,
-                               scatter),
     }
 
 
@@ -182,9 +170,8 @@ def hold(name: str, kern: Callable, plain: Callable, args: tuple,
 
 
 def check(inp: dict) -> Dict[str, int]:
-    """Hold each kernel and previous variant against its plain version on
-    the first draw of `inp` (`hold`). Returns the max abs error per
-    kernel: 0."""
+    """Hold each kernel against its plain version on the first draw of
+    `inp` (`hold`). Returns the max abs error per kernel: 0."""
     where = f" at n={inp['n']} E={inp['e']} M={inp['m']}"
     return {name: hold(name, kern, plain, args[0], where)
             for name, (kern, plain, args) in _calls(inp).items()}
@@ -215,12 +202,6 @@ def bounds_ms(inp: dict) -> Dict[str, float]:
         "take_axis1": 8 * cells + 4 * A.LANES,
         "take_axis0_axis1": 8 * cells + 4 * nt,
     }
-    for prev, kname in (("take_two_level_chunks", "take_two_level"),
-                        ("take_scalar_l2", "take_scalar"),
-                        ("scatter_min_atomic", "scatter_min"),
-                        ("take_axis0_axis1_l2", "take_axis0_axis1"),
-                        ("take_axis0_l2", "take_axis0")):
-        nbytes[prev] = nbytes[kname]
     return {k: 1e3 * v / HBM_BYTES for k, v in nbytes.items()}
 
 
@@ -233,8 +214,7 @@ def merged_reds(idx: torch.Tensor) -> int:
     head and tail updates; of each whole quad, one for each run of equal
     neighbours that ends in slots 0-2; and of slot 3, one for each distinct
     index among a warp's 32 quads where two neighbouring quads end on the
-    same index, else one a quad. The previous design issues one for every
-    update."""
+    same index, else one a quad."""
     e = idx.numel()
     head, quads = A.vector_split(idx.data_ptr(), e)
     body = idx[head:head + 4 * quads].view(quads, 4).to(torch.int64)
@@ -251,15 +231,14 @@ def merged_reds(idx: torch.Tensor) -> int:
 def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
                 scatter_idx: torch.Tensor, val: torch.Tensor,
                 reps: int) -> dict:
-    """`take` and both designs of `take_two_level` (the table padded to
-    rows of 128) by `gather_idx`, `take2d` on its whole rows of 128, and
-    both designs of `scatter_min` of `val` at
-    `scatter_idx`, on given index streams, beside torch's `index_select`
-    and `scatter_reduce_("amin")` on the same streams as int64; and both
-    designs of `take_scalar` on the first `TILE` indices of `gather_idx`.
-    Each is held bit-equal to its plain version first, and so are both
-    designs of `take_axis0` and of `take_axis0_axis1`, and `take_axis1`,
-    on the same rows (not timed).
+    """`take` and `take_two_level` (the table padded to rows of 128) by
+    `gather_idx`, `take2d` on its whole rows of 128, and `scatter_min` of
+    `val` at `scatter_idx`, on given index streams, beside torch's
+    `index_select` and `scatter_reduce_("amin")` on the same streams as
+    int64; and `take_scalar` on the first `TILE` indices of `gather_idx`.
+    Each is held bit-equal to its plain version first, and so are
+    `take_axis0`, `take_axis1` and `take_axis0_axis1` on the same rows
+    (not timed).
     Each repetition works on its own copy of the streams, so that the
     indices come from device memory and not from L2."""
     n = table.shape[0]
@@ -282,23 +261,14 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
             ("take", (A.take(table, gather_idx), looked_up)),
             ("take2d", (A.take2d(tab2d, rows), by_first)),
             ("take_axis0", (A.take_axis0(tab2d, rows), by_col)),
-            ("take_axis0_l2", (A.take_axis0_l2(tab2d, rows), by_col)),
             ("take_axis1", (A.take_axis1(tab2d, rows),
                             A.take_axis1_plain(tab2d, rows))),
             ("take_two_level", (A.take_two_level(tab2d, gather_idx),
                                 looked_up)),
-            ("take_two_level_chunks",
-             (A.take_two_level_chunks(tab2d, gather_idx), looked_up)),
             ("take_axis0_axis1", (A.take_axis0_axis1(tab2d, rows), by_rows)),
-            ("take_axis0_axis1_l2",
-             (A.take_axis0_axis1_l2(tab2d, rows), by_rows)),
             ("take_scalar", (A.take_scalar(table, tile),
                              A.take_plain(table, tile))),
-            ("take_scalar_l2", (A.take_scalar_l2(table, tile),
-                                A.take_plain(table, tile))),
-            ("scatter_min", (A.scatter_min(scatter_idx, val, n), ref)),
-            ("scatter_min_atomic",
-             (A.scatter_min_atomic(scatter_idx, val, n), ref))):
+            ("scatter_min", (A.scatter_min(scatter_idx, val, n), ref))):
         errs[name] = int((got.long() - want.long()).abs().max())
         _require(torch.equal(got, want),
                  f"{name} differs from its plain version on the given "
@@ -311,19 +281,15 @@ def time_stream(table: torch.Tensor, gather_idx: torch.Tensor,
         "take_ms": time_ms(A.take, [(table, i) for i in gathers]),
         "take_two_level_ms": time_ms(A.take_two_level,
                                      [(tab2d, i) for i in gathers]),
-        "take_two_level_chunks_ms": time_ms(A.take_two_level_chunks,
-                                            [(tab2d, i) for i in gathers]),
         "index_select_ms": time_ms(
             _index_select, [(table, i.to(torch.int64)) for i in gathers]),
         "take2d_ms": time_ms(A.take2d, row_args),
         "scatter_min_ms": time_ms(A.scatter_min, scatter_args),
-        "scatter_min_atomic_ms": time_ms(A.scatter_min_atomic, scatter_args),
         "scatter_reduce_ms": time_ms(
             _torch_scatter_min,
             [(i.to(torch.int64), v, n) for i, v in zip(scatters, vals)]),
         "scatter_min_reds": merged_reds(scatter_idx),
         "take_scalar_ms": time_ms(A.take_scalar, scalar_args),
-        "take_scalar_l2_ms": time_ms(A.take_scalar_l2, scalar_args),
         "max_abs_err": errs,
     }
 
@@ -405,18 +371,15 @@ def _yardsticks(inp: dict, torch_ms: Dict[str, float]) -> Dict[str, float]:
         torch.take_along_dim(t, r, 0), ln, 1),
         [(tab2d, r, ln) for r, ln in zip(rows, lanes)])
     return {
-        "take": a1, "take_two_level": a1,
-        "take_two_level_chunks": a1,
-        "take_scalar": scalar, "take_scalar_l2": scalar,
+        "take": a1, "take_two_level": a1, "take_scalar": scalar,
         "take2d": time_ms(lambda t, r0, ln: t[r0, ln],
                           [(tab2d, r[:, :1].contiguous(), ln)
                            for r, ln in zip(rows, lanes)]),
         "scatter_min": torch_ms["B2 scatter_reduce_ amin, random idx"],
-        "scatter_min_atomic": torch_ms["B2 scatter_reduce_ amin, random idx"],
-        "take_axis0": axis0, "take_axis0_l2": axis0,
+        "take_axis0": axis0,
         "take_axis1": time_ms(lambda t, ln: torch.take_along_dim(t, ln, 1),
                               [(row0, ln) for ln in lanes]),
-        "take_axis0_axis1": v4, "take_axis0_axis1_l2": v4,
+        "take_axis0_axis1": v4,
     }
 
 
@@ -435,8 +398,8 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     torch_ms = _torch_sections(inp, emit)
 
     errs = check(inp)
-    emit(f"C1-C4, V1-V4 and their other designs bit-equal to their plain "
-         f"versions at n={n} E={e} M={inp['m']}")
+    emit(f"C1-C4, V1-V4 bit-equal to their plain versions at n={n} E={e} "
+         f"M={inp['m']}")
     before = dict(A.launch_counts)
     yard = _yardsticks(inp, torch_ms)
     bound = bounds_ms(inp)
@@ -453,13 +416,10 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
         }
         emit(f"{kname:20s} {ms:9.4f} ms  plain {rows[kname]['plain_ms']:9.4f}"
              f"  yardstick {yard[kname]:9.4f}  bound {bound[kname]:.5f} ms")
-    for kname in ("take_scalar", "take_scalar_l2"):
-        sc = rows[kname]
-        sc["ms_scaled_to_e"] = sc["ms"] * e / sc["elements"]
-        emit(f"   {kname} scaled to E: {sc['ms_scaled_to_e']:.2f} ms")
-    for kname in ("scatter_min", "scatter_min_atomic"):
-        rows[kname]["reds"] = e if kname == "scatter_min_atomic" \
-            else merged_reds(inp["idx"][0])
+    sc = rows["take_scalar"]
+    sc["ms_scaled_to_e"] = sc["ms"] * e / sc["elements"]
+    emit(f"   take_scalar scaled to E: {sc['ms_scaled_to_e']:.2f} ms")
+    rows["scatter_min"]["reds"] = merged_reds(inp["idx"][0])
     # the slab table's default plan, and on the card its spans and V1's
     rows["take_axis0"]["plan"] = A.slab_plan(inp["nt"])._asdict()
     if on_card:
@@ -472,16 +432,14 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
              f"stage {rows['take_axis0']['stage_cycles']} lookup "
              f"{rows['take_axis0']['lookup_cycles']} cycles, "
              f"{rows['take_axis0']['blocks']} blocks")
-    # the cluster tables' default plans, and on the card their staging share
-    for kname in ("take_two_level", "take_axis0_axis1"):
-        rows[kname]["plan"] = A.table_plan(inp["nt"])._asdict()
-        if on_card:
-            rows[kname].update(table_spans(calls[kname][0],
-                                           calls[kname][2][0]))
-            emit(f"   {kname} default plan {rows[kname]['plan']}: stage "
-                 f"{rows[kname]['stage_cycles']} lookup "
-                 f"{rows[kname]['lookup_cycles']} cycles, "
-                 f"{rows[kname]['clusters']} clusters")
+    # the cluster table's default plan, and on the card its staging share
+    c2 = rows["take_two_level"]
+    c2["plan"] = A.table_plan(inp["nt"])._asdict()
+    if on_card:
+        c2.update(table_spans(A.take_two_level, calls["take_two_level"][2][0]))
+        emit(f"   take_two_level default plan {c2['plan']}: stage "
+             f"{c2['stage_cycles']} lookup {c2['lookup_cycles']} cycles, "
+             f"{c2['clusters']} clusters")
     res = {"device": name, "timer": "cuda events" if on_card
            else "host clock", "n": n, "nt": inp["nt"], "e": e,
            "m": inp["m"], "reps": reps, "torch_ms": torch_ms}
@@ -492,14 +450,11 @@ def run(n: int = 100_000, e: int = 1_600_000, reps: int = 10, device=None,
     if on_card:
         res["take_scalar_cycles"] = _cycles_section(inp, emit)
         khz = res["take_scalar_cycles"]["sm_clock_khz"]
-        for kname in ("take_two_level", "take_axis0_axis1"):
-            # every read of the launch over cluster 0's lookup span
-            rows[kname]["lookup_reads_per_s"] = \
-                e / (rows[kname]["lookup_cycles"] / (1e3 * khz))
+        # every read of the launch over cluster 0's lookup span
+        c2["lookup_reads_per_s"] = e / (c2["lookup_cycles"] / (1e3 * khz))
     for kname, row in rows.items():
         row["launches"] = A.launch_counts[kname] - before[kname]
-    res["kernels"] = {k: rows[k] for k in A.KERNELS}
-    res["previous"] = {k: rows[k] for k in A.PREVIOUS}
+    res["kernels"] = rows
     return res
 
 
@@ -507,7 +462,7 @@ SWEEP = (2, 4, 8)  # the cluster sizes `cluster_sweep` tries
 
 
 def table_spans(kern: Callable, args: tuple, reps: int = 5, **kw) -> dict:
-    """Cluster 0's staging and lookup spans of C2 or V4 in SM cycles (the
+    """Cluster 0's staging and lookup spans of C2 in SM cycles (the
     median of `reps` launches), and the clusters launched, on the card."""
     cyc = torch.zeros(3, dtype=torch.int64, device=args[0].device)
     spans = []
@@ -544,9 +499,9 @@ def _sweep(inp: dict, kname: str, configs: Dict[str, dict], spans: Callable,
 
 
 def cluster_sweep(inp: dict, emit) -> dict:
-    """C2 and V4 at each of `SWEEP`'s cluster sizes whose shared memory
-    holds the table (`_sweep`); on the card also their spans, clusters
-    launched and bytes staged (each cluster stages the whole table)."""
+    """C2 at each of `SWEEP`'s cluster sizes whose shared memory holds the
+    table (`_sweep`); on the card also its spans, clusters launched and
+    bytes staged (each cluster stages the whole table)."""
     nt = inp["nt"]
 
     def sizes(kw, row):
@@ -555,16 +510,13 @@ def cluster_sweep(inp: dict, emit) -> dict:
             out["staged_bytes"] = row["clusters"] * 4 * nt
         return out
     configs = {str(k): {"blocks": k} for k in SWEEP if A.table_fits(nt, k)}
-    return {kname: _sweep(inp, kname, configs,
-                          functools.partial(table_spans, getattr(A, kname)),
-                          sizes, emit)
-            for kname in ("take_two_level", "take_axis0_axis1")}
+    return _sweep(inp, "take_two_level", configs,
+                  functools.partial(table_spans, A.take_two_level), sizes,
+                  emit)
 
 
 # the lookups that make one random table read an index
-RATED = ("take", "take_two_level", "take_two_level_chunks", "take2d",
-         "take_axis0", "take_axis0_l2", "take_axis0_axis1",
-         "take_axis0_axis1_l2")
+RATED = ("take", "take_two_level", "take2d", "take_axis0", "take_axis0_axis1")
 SLAB_SWEEP = (32, 16)  # V2's slab widths `slab_sweep` tries
 
 

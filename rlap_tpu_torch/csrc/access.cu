@@ -11,13 +11,7 @@
 //   take2d_kernel           <- V1 k_v1     tools/probe_access2.py:85  (call :53)
 //   take_axis0_slab_kernel  <- V2 k_v2     tools/probe_access2.py:97  (call :102)
 //   take_axis1_kernel       <- V3 k_v3     tools/probe_access2.py:136 (call :143)
-//   take_axis0_axis1_shuffle_kernel
-//                           <- V4 k_v4     tools/probe_access2.py:175 (call :194)
-// and keep the previous designs of C2, C3, C4, V2 and V4 as named
-// variants, so that one run can compare them: take_two_level_kernel (the
-// table in per-block chunks), take_scalar_kernel (one thread against L2),
-// fill_kernel + scatter_min_kernel (one atomicMin an update),
-// take_axis0_kernel and take_axis0_axis1_kernel (table reads from L2).
+//   take_axis0_axis1_kernel <- V4 k_v4     tools/probe_access2.py:175 (call :194)
 //
 // The probed pattern is the vertex-table access of the rLap round: a
 // lookup in an n-entry table by ~2 |edges| indices, and a scatter-min into
@@ -26,8 +20,8 @@
 // table: 13.2 MB, 3.9 us at 3.35 TB/s. All are bound by bytes, except the
 // one-thread walk of C3, which is bound by latency; what they probe is how
 // far the random table access keeps them from that. A random 4-byte read
-// that L2 serves costs a 32-byte sector: C1's take_kernel and V2's first
-// design move 32 bytes of L2 traffic for each 4-byte entry they read.
+// that L2 serves costs a 32-byte sector: C1's take_kernel moves 32 bytes
+// of L2 traffic for each 4-byte entry it reads.
 //
 // The TPU kernels hold the whole table in VMEM and walk index tiles with
 // a sequential grid. On this card a block has at most 227 KB of shared
@@ -35,14 +29,15 @@
 // thread-block cluster of k blocks on neighbouring SMs shares its shared
 // memory (distributed shared memory, up to 8 x 227 KB in a portable
 // cluster), which holds such a table on-chip. C3 stages it there for its
-// one-thread walk; C2 and V4 launch persistent clusters, each of which
-// stages the whole table in equal slices across its blocks and serves its
-// share of the indices from it (the cluster-resident table below). C1
-// reads the table from the 50 MB L2: a design that held it in a cluster
-// and routed each index to the block holding its entry took twice the
-// time on this card. V2 needs no cluster: lane
-// j reads only column j, so a block that stages a group of columns serves
-// all of their reads. V1 reads one 512-byte table row for each row of 128
+// one-thread walk; C2 launches persistent clusters, each of which stages
+// the whole table in equal slices across its blocks and serves its share
+// of the indices from it (the cluster-resident table below). C1 reads the
+// table from the 50 MB L2: a design that held it in a cluster and routed
+// each index to the block holding its entry took twice the time on this
+// card. V4 reads it from L2 too: served from the cluster-resident table,
+// it was slower on random indices and on the rLap stream. V2 needs no
+// cluster: lane j reads only column j, so a block that stages a group of
+// columns serves all of their reads. V1 reads one 512-byte table row for each row of 128
 // indices, from L2, and selects its lanes inside the warp; V3's one
 // 128-entry row is staged whole in each block. Ragged sizes are masked in
 // the kernels; the TPU calls need E to be a multiple of 8192.
@@ -69,10 +64,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int LANES = 128;               // table row width, as on the TPU
 constexpr int QUADS_PER_ROW = LANES / 4;
 constexpr int MAX_BLOCKS = 132 * 16;     // grid-stride cap: 16 blocks an SM
-constexpr int STAGE_THREADS = 1024;
-// take_two_level: the most table entries one block stages (224 KB of the
-// 227 KB a block may use).
-constexpr int MAX_CHUNK = 57344;
 
 inline int grid_for(int64_t work) {
   const int64_t blocks = (work + THREADS - 1) / THREADS;
@@ -93,42 +84,6 @@ take_kernel(const int* __restrict__ table, const int* __restrict__ idx,
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < e;
        i += stride)
     out[i] = __ldg(table + idx[i]);
-}
-
-// C2, previous variant (take_two_level_chunks). The same lookup in two
-// levels. blockIdx.y names a chunk of the table
-// that fits shared memory; the block stages it with coalesced loads, then
-// walks its range of indices (blockIdx.x) and serves those that fall in
-// the chunk. An index falls in exactly one chunk, so every output is
-// written exactly once: no atomics, no zero-fill. The chunk load is paid
-// per block: at the default shape (2 chunks of 50048 entries, 66 ranges of
-// 24243 indices on 132 SMs) a block stages 2.06 table entries per index
-// it reads, and every index is read once per chunk.
-__global__ void __launch_bounds__(STAGE_THREADS)
-take_two_level_kernel(const int* __restrict__ table,
-                      const int* __restrict__ idx, int* __restrict__ out,
-                      int nt, int64_t e, int chunk, int64_t range) {
-  extern __shared__ int stage[];
-  const int base = blockIdx.y * chunk;
-  const int len = nt - base < chunk ? nt - base : chunk;
-  for (int k = threadIdx.x; k < len; k += blockDim.x)
-    stage[k] = table[base + k];
-  __syncthreads();
-  const int64_t lo = (int64_t)blockIdx.x * range;
-  const int64_t hi = lo + range < e ? lo + range : e;
-  for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const unsigned off = (unsigned)(idx[i] - base);
-    if (off < (unsigned)len) out[i] = stage[off];
-  }
-}
-
-// C3, previous variant (take_scalar_l2). One thread walks the indices one
-// after another against device memory: the latency of a dependent index
-// load and table load from L2 per element, with nothing to hide it.
-__global__ void take_scalar_kernel(const int* __restrict__ table,
-                                   const int* __restrict__ idx,
-                                   int* __restrict__ out, int e) {
-  for (int i = 0; i < e; ++i) out[i] = table[idx[i]];
 }
 
 // C3. The TPU probe walks a VMEM table with one scalar loop: the floor of
@@ -293,27 +248,9 @@ take_scalar_cluster_kernel(const int* __restrict__ table,
   cluster.sync();  // no block leaves while block 0 may still read it
 }
 
-// C4, previous variant (scatter_min_atomic). out = full(nt, 2^30), then
-// out[idx[i]] = min(out[idx[i]], val[i]) by one atomicMin in L2 an update,
-// in a second launch after the fill. Min does not depend on the order, so
-// the result is deterministic.
-__global__ void __launch_bounds__(THREADS)
-fill_kernel(int* __restrict__ out, int nt, int value) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nt; i += stride)
-    out[i] = value;
-}
-
-__global__ void __launch_bounds__(THREADS)
-scatter_min_kernel(const int* __restrict__ idx, const int* __restrict__ val,
-                   int* __restrict__ out, int64_t e) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < e;
-       i += stride)
-    atomicMin(out + idx[i], val[i]);
-}
-
-// C4. The same function with fewer and earlier atomics. On the rLap
+// C4. out = full(nt, 2^30), then out[idx[i]] = min(out[idx[i]], val[i])
+// by atomics in L2; min does not depend on the order, so the result is
+// deterministic. On the rLap
 // endpoint stream, which is sorted by sender, a hub is a long run of one
 // index: one atomicMin a lane sends the whole warp to one L2 address, one
 // after another. Here each thread takes 4 consecutive updates (one 16-byte
@@ -477,24 +414,6 @@ take2d_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
   }
 }
 
-// V2, previous variant (take_axis0_l2). out[i, j] = tab[idx[i, j] / 128,
-// j]: lane j always reads column j. A plain gather against L2 (the table
-// is not staged); the four entries of a quad lie in four table rows.
-__global__ void __launch_bounds__(THREADS)
-take_axis0_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
-                  int4* __restrict__ out, int64_t quads) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < quads;
-       q += stride) {
-    const int4 j = idx[q];
-    const int* col = tab + 4 * (int)(q % QUADS_PER_ROW);
-    out[q] = make_int4(__ldg(col + (j.x >> 7) * LANES),
-                       __ldg(col + (j.y >> 7) * LANES + 1),
-                       __ldg(col + (j.z >> 7) * LANES + 2),
-                       __ldg(col + (j.w >> 7) * LANES + 3));
-  }
-}
-
 // V3. out[i, j] = tab[0, idx[i, j] % 128]: the 128-entry row is staged
 // once per block in shared memory, then each thread selects four lanes.
 __global__ void __launch_bounds__(THREADS)
@@ -512,11 +431,10 @@ take_axis1_kernel(const int* __restrict__ tab, const int4* __restrict__ idx,
   }
 }
 
-// V4, previous variant (take_axis0_axis1_l2). V2 then V3 on its result:
-// byrow[i, k] = tab[idx[i, k] / 128, k], then out[i, j] = byrow[i,
-// idx[i, j] % 128]. One warp per index row: it reads its 128 entries of
-// byrow from L2 (four a lane), stages them in shared memory, syncs the
-// warp, and selects.
+// V4. V2 then V3 on its result: byrow[i, k] = tab[idx[i, k] / 128, k],
+// then out[i, j] = byrow[i, idx[i, j] % 128]. One warp per index row: it
+// reads its 128 entries of byrow from L2 (four a lane), stages them in
+// shared memory, syncs the warp, and selects.
 __global__ void __launch_bounds__(THREADS)
 take_axis0_axis1_kernel(const int* __restrict__ tab,
                         const int4* __restrict__ idx, int4* __restrict__ out,
@@ -541,7 +459,7 @@ take_axis0_axis1_kernel(const int* __restrict__ tab,
 
 
 // ---------------------------------------------------------------------------
-// The cluster-resident table (C2 and V4). A persistent grid of clusters of
+// The cluster-resident table (C2). A persistent grid of clusters of
 // k blocks (k <= 8, from the wrapper's table_plan), as many as the card
 // holds at once. Each block holds an equal slice of `slice` entries (a
 // multiple of 4): entry j lies in block j / slice of every cluster, at
@@ -564,15 +482,13 @@ take_axis0_axis1_kernel(const int* __restrict__ tab,
 // the lookup span (to the last) in clock64 cycles, and the number of
 // clusters launched.
 //
-// What bounds them: each cluster stages the whole table (clusters x 4 nt
+// What bounds it: each cluster stages the whole table (clusters x 4 nt
 // bytes from L2), and each index costs one random 4-byte read of
-// distributed shared memory, whose rate these probes measure. The bytes
+// distributed shared memory, whose rate this probe measures. The bytes
 // bound (indices in, outputs out, the table once) is 3.9 us at the default
 // shape.
 constexpr int CLUSTER_THREADS = 512;
-constexpr int CLUSTER_WARPS = CLUSTER_THREADS / 32;
 constexpr int TAKE_UNROLL = 2;  // C2: index quads a thread has in flight
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // entry j of a table cut into equal slices, one a block of the cluster
 __device__ __forceinline__ int slice_entry(uint32_t tab, unsigned j,
@@ -679,60 +595,6 @@ take_two_level_cluster_kernel(const int* __restrict__ table,
     const int64_t i = t < 4 ? (t < head ? t : -1)
                             : (t - 4 < tail ? head + 4 * quads + (t - 4) : -1);
     if (i >= 0) out[i] = slice_entry(tab, idx[i], slice, magic);
-  }
-  cluster.sync();  // no block leaves while its cluster may still read it
-  record_spans(cycles, t0, t1, cluster);
-}
-
-// V4. byrow[i, k] = tab2d[idx[i, k] / 128, k], then out[i, j] = byrow[i,
-// idx[i, j] % 128], with every table read from the cluster-resident table,
-// in the form out[i, j] = tab2d[idx[i, L] / 128, L] with L = idx[i, j] %
-// 128. One warp a 128-index row (a quad a lane, 16-byte loads and stores),
-// the grid's warps striding over rows, the next row's quad loaded before
-// the current row's reads. idx[i, L] lies in lane L / 4, slot L % 4: 4
-// shuffles an output fetch it, then each output is one table read, 128 a
-// row, with no shared-memory stage of byrow. (A stage of byrow through a
-// per-warp 512-byte row, the tool's two steps, timed 9% slower on the
-// card.)
-__global__ void __launch_bounds__(CLUSTER_THREADS)
-take_axis0_axis1_shuffle_kernel(const int* __restrict__ table,
-                                const int4* __restrict__ idx,
-                                int4* __restrict__ out,
-                                long long* __restrict__ cycles, int nt,
-                                int slice, unsigned long long magic, int m) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long t0 = clock64();
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint32_t tab =
-      smem_u32(stage_slice(smem, table, nt, slice, cluster.block_rank()));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int warps = gridDim.x * CLUSTER_WARPS;
-  int i = blockIdx.x * CLUSTER_WARPS + warp;
-  int4 j = i < m ? __ldg(idx + (int64_t)i * QUADS_PER_ROW + lane)
-                 : make_int4(0, 0, 0, 0);
-  stage_wait(smem, cluster);
-  const long long t1 = clock64();
-  for (; i < m; i += warps) {  // warp-uniform
-    const int ni = i + warps;
-    const int4 jn = ni < m ? __ldg(idx + (int64_t)ni * QUADS_PER_ROW + lane)
-                           : make_int4(0, 0, 0, 0);
-    const int k[4] = {j.x, j.y, j.z, j.w};
-    unsigned at[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int lc = k[c] & (LANES - 1), src = lc >> 2, slot = lc & 3;
-      const int a = __shfl_sync(FULL_MASK, j.x, src);
-      const int b = __shfl_sync(FULL_MASK, j.y, src);
-      const int d = __shfl_sync(FULL_MASK, j.z, src);
-      const int f = __shfl_sync(FULL_MASK, j.w, src);
-      const int r = slot == 0 ? a : (slot == 1 ? b : (slot == 2 ? d : f));
-      at[c] = static_cast<unsigned>(r >> 7) * LANES + lc;
-    }
-    int v[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[c] = slice_entry(tab, at[c], slice, magic);
-    out[(int64_t)i * QUADS_PER_ROW + lane] = make_int4(v[0], v[1], v[2], v[3]);
-    j = jn;
   }
   cluster.sync();  // no block leaves while its cluster may still read it
   record_spans(cycles, t0, t1, cluster);
@@ -990,32 +852,6 @@ int access_take_two_level(const void* table, const void* idx, void* out,
       (int64_t)quads);
 }
 
-int access_take_two_level_chunks(const void* table, const void* idx,
-                                 void* out, int nt, int e, void* stream) {
-  if (e <= 0 || nt <= 0) return 0;
-  int sms = 0;
-  int err = sm_count(&sms);
-  if (err != 0) return err;
-  const int chunks = (nt + MAX_CHUNK - 1) / MAX_CHUNK;
-  const int chunk = (((nt + chunks - 1) / chunks) + 3) / 4 * 4;  // <= MAX_CHUNK
-  // one wave: a block of this size has an SM to itself
-  int64_t ranges = sms / chunks < 1 ? 1 : sms / chunks;
-  const int64_t most = ((int64_t)e + STAGE_THREADS - 1) / STAGE_THREADS;
-  if (ranges > most) ranges = most;
-  const int64_t range = ((int64_t)e + ranges - 1) / ranges;
-  const size_t bytes = sizeof(int) * (size_t)chunk;
-  err = static_cast<int>(cudaFuncSetAttribute(
-      take_two_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-  if (err != 0) return err;
-  take_two_level_kernel<<<dim3((unsigned)ranges, (unsigned)chunks),
-                          STAGE_THREADS, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), static_cast<const int*>(idx),
-      static_cast<int*>(out), nt, e, chunk, range);
-  return last_error();
-}
-
 int access_take_scalar(const void* table, const void* idx, void* out,
                        void* cycles, int n, int e, int blocks, int head,
                        int slice, int smem, void* stream) {
@@ -1046,15 +882,6 @@ int access_take_scalar(const void* table, const void* idx, void* out,
   return last_error();
 }
 
-int access_take_scalar_l2(const void* table, const void* idx, void* out,
-                          int e, void* stream) {
-  if (e <= 0) return 0;
-  take_scalar_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), static_cast<const int*>(idx),
-      static_cast<int*>(out), e);
-  return last_error();
-}
-
 int access_scatter_min(const void* idx, const void* val, void* out, int nt,
                        int e, int head, int quads, int fill, void* stream) {
   if (nt <= 0) return 0;
@@ -1077,20 +904,6 @@ int access_scatter_min(const void* idx, const void* val, void* out, int nt,
       static_cast<const int*>(val), static_cast<int*>(out), head,
       (int64_t)quads, (int64_t)e);
   if (lerr != cudaSuccess) return static_cast<int>(lerr);
-  return last_error();
-}
-
-int access_scatter_min_atomic(const void* idx, const void* val, void* out,
-                              int nt, int e, int fill, void* stream) {
-  if (nt <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_kernel<<<grid_for(nt), THREADS, 0, s>>>(static_cast<int*>(out), nt,
-                                               fill);
-  int err = last_error();
-  if (err != 0 || e <= 0) return err;
-  scatter_min_kernel<<<grid_for(e), THREADS, 0, s>>>(
-      static_cast<const int*>(idx), static_cast<const int*>(val),
-      static_cast<int*>(out), e);
   return last_error();
 }
 
@@ -1137,17 +950,6 @@ int access_take_axis0(const void* tab, const void* idx, void* out,
   }
 }
 
-int access_take_axis0_l2(const void* tab, const void* idx, void* out, int m,
-                         void* stream) {
-  if (m <= 0) return 0;
-  const int64_t quads = (int64_t)m * QUADS_PER_ROW;
-  take_axis0_kernel<<<grid_for(quads), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tab), static_cast<const int4*>(idx),
-      static_cast<int4*>(out), quads);
-  return last_error();
-}
-
 int access_take_axis1(const void* tab, const void* idx, void* out, int m,
                       void* stream) {
   if (m <= 0) return 0;
@@ -1160,22 +962,7 @@ int access_take_axis1(const void* tab, const void* idx, void* out, int m,
 }
 
 int access_take_axis0_axis1(const void* tab, const void* idx, void* out,
-                            void* cycles, int nt, int m, int blocks,
-                            int slice, int smem, void* stream) {
-  if (m <= 0) return 0;
-  if (!plan_holds(nt, blocks, slice, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int per_cluster = blocks * CLUSTER_WARPS;
-  return launch_clusters(
-      take_axis0_axis1_shuffle_kernel, CLUSTER_THREADS, blocks, smem,
-      (m + per_cluster - 1) / per_cluster,
-      static_cast<cudaStream_t>(stream), static_cast<const int*>(tab),
-      static_cast<const int4*>(idx), static_cast<int4*>(out),
-      static_cast<long long*>(cycles), nt, slice, div_magic(slice), m);
-}
-
-int access_take_axis0_axis1_l2(const void* tab, const void* idx, void* out,
-                               int m, void* stream) {
+                            int m, void* stream) {
   if (m <= 0) return 0;
   const int blocks = (m + WARPS - 1) / WARPS;
   take_axis0_axis1_kernel<<<blocks > MAX_BLOCKS ? MAX_BLOCKS : blocks,

@@ -82,7 +82,7 @@
 // card shared-memory loads overlap with mma.sync but float32 arithmetic
 // hardly does, so the splits cost most of their instruction count on top
 // of the tensor cores' time; that, and the 280 TFLOP/s that mma.sync
-// reaches here (rlap_tpu_torch/bench/probe_mma.py measures both), is what
+// reaches here (both measured on this card), is what
 // holds these kernels back, and why the main shape moved to wgmma. They
 // stay for the widths wgmma's layouts do not take here (f > 128, or rows
 // that are not 16-byte aligned).

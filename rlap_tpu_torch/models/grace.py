@@ -34,8 +34,6 @@ from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
                                           torch_adam)
 from rlap_tpu_torch.nn.gcn import GCNEncoder, ProjectionHead
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
-from rlap_tpu_torch.parallel.mesh import (average_gradients, shard_graph,
-                                          shard_views)
 from rlap_tpu_torch.utils import tracing
 
 
@@ -119,6 +117,8 @@ class GraceTrainer:
                 make = lambda: (self.aug1(g, k1), self.aug2(g, k2))
             if self.mesh is None:
                 return make()
+            from rlap_tpu_torch.parallel.mesh import shard_views
+
             return shard_views(make, self.mesh, self.device)
 
     def train_step(self, g1: Graph, g2: Graph) -> float:
@@ -134,6 +134,8 @@ class GraceTrainer:
         with tracing.annotate("trainer.backward"):
             loss.backward()
             if self.mesh is not None:
+                from rlap_tpu_torch.parallel.mesh import average_gradients
+
                 average_gradients(self.model.parameters(), self.mesh)
         with tracing.annotate("trainer.optimizer"):
             self.optimizer.step()
@@ -159,6 +161,8 @@ class GraceTrainer:
     def embed(self, g: Graph) -> torch.Tensor:
         g = g.to(self.device)
         if self.mesh is not None:
+            from rlap_tpu_torch.parallel.mesh import shard_graph
+
             g = shard_graph(g, self.mesh)
         return self.model.embed(g)
 

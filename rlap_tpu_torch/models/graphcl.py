@@ -30,8 +30,6 @@ from rlap_tpu_torch.models.common import (checkpointed_fit, init_generator,
 from rlap_tpu_torch.nn.gin import GINEncoder
 from rlap_tpu_torch.nn.layers import MLP
 from rlap_tpu_torch.objectives.contrast import DualBranchContrast
-from rlap_tpu_torch.parallel.mesh import (average_gradients, shard_graph,
-                                          shard_views)
 
 FEATURELESS_DIM = 1
 
@@ -135,6 +133,8 @@ class GraphCLTrainer:
         loss = self.contrast(g1=h1, g2=h2)
         loss.backward()
         if self.mesh is not None:
+            from rlap_tpu_torch.parallel.mesh import average_gradients
+
             average_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step()
         return float(loss.detach())
@@ -148,8 +148,12 @@ class GraphCLTrainer:
             self.key, k1, k2 = rng.split(self.key, 3)
             make = lambda: (self.aug1(batch, k1),
                             self.aug2(batch, k2))
-            g1, g2 = make() if self.mesh is None else shard_views(
-                make, self.mesh, self.device)
+            if self.mesh is None:
+                g1, g2 = make()
+            else:
+                from rlap_tpu_torch.parallel.mesh import shard_views
+
+                g1, g2 = shard_views(make, self.mesh, self.device)
             total += self.train_step(g1, g2, seg, ng)
         return total
 
@@ -170,6 +174,8 @@ class GraphCLTrainer:
         for chunk, batch, seg in clean_batches(graphs, self.batch_size,
                                                self.device):
             if self.mesh is not None:
+                from rlap_tpu_torch.parallel.mesh import shard_graph
+
                 batch = shard_graph(batch, self.mesh)
             _, gemb, _ = self.model(batch, seg, len(chunk), train=False)
             outs.append(gemb[:len(chunk)].cpu().numpy())

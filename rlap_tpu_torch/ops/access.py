@@ -10,25 +10,23 @@ inside `main()` of `tools/probe_access.py` (C1 `pallas_take` :139, C2
 is on this card. `rlap_tpu_torch/bench/probe_access.py` is the entry point
 that times them beside torch's own gathers and scatters.
 
-Seven probes were redesigned for Hopper. C3 (`take_scalar`) stages its
-table in the shared memory of a thread-block cluster and walks it with one
-thread; C4 (`scatter_min`) merges equal indices in registers and across
-the warp before its atomics and overlaps its fill. C2 (`take_two_level`)
-and V4 (`take_axis0_axis1`) launch persistent clusters, each of which
-holds the whole table in equal slices of its blocks' shared memory
-(`table_plan`) and serves its share of the indices from there. C1 (`take`)
-reads its table from L2: a design that held the table in a cluster and
-routed each index to the block holding its entry took twice its time on
-every input measured, and was removed. V2 (`take_axis0`) reads column j
+Each probe has one design: of those tried, the one that was faster on
+the card (PERF.md section 6). C3 (`take_scalar`) stages its table in the
+shared memory of a thread-block cluster and walks it with one thread; C4
+(`scatter_min`) merges equal indices in registers and across the warp
+before its atomics and overlaps its fill. C2 (`take_two_level`) launches
+persistent clusters, each of which holds the whole table in equal slices
+of its blocks' shared memory (`table_plan`) and serves its share of the
+indices from there. C1 (`take`) reads its table from L2: a design that
+held the table in a cluster and routed each index to the block holding
+its entry took twice its time on every input measured, and was removed.
+V4 (`take_axis0_axis1`) reads its table from L2 too: served from a
+cluster-resident table it was slower. V2 (`take_axis0`) reads column j
 for lane j only, so each block holds a slab of whole columns and serves
 their reads with no cluster (`slab_plan`). V1 (`take2d`) computes what
 the tool's kernel `k_v1` computes (`take2d_plain`): one table row for
 each row of 128 indices, read whole by a warp, its lanes selected inside
-the warp. The previous designs stay, so that one run compares both:
-`take_two_level_chunks` (the table staged in per-block chunks),
-`take_scalar_l2` (one thread against L2), `scatter_min_atomic` (one
-atomicMin an update after a separate fill), `take_axis0_l2` and
-`take_axis0_axis1_l2` (table reads from L2).
+the warp.
 
 All tensors are int32 and contiguous. A table is `[n]`, or `[R, 128]` where
 the probe is two-level; indices are `[E]`, or `[M, 128]` tiles for the 2-D
@@ -40,17 +38,16 @@ plain versions.
 
 `take_scalar` takes at most `TILE` indices and a table that `CLUSTER_MAX`
 blocks' shared memory holds (`scalar_plan`: 456,672 entries beside 8192
-indices), both 16-byte aligned for the bulk copies. `take_two_level` and
-`take_axis0_axis1` take a table that `CLUSTER_MAX` blocks hold
-(`table_plan`: 464,768 entries), 16-byte aligned, and raise `ValueError`
-beyond it; `take_axis0` one whose slabs of 4 columns fit a block
-(`slab_plan`: 1,859,584 entries), at any offset; `take` and the other
-designs take any size. `take` and `take_two_level` take indices at any
-offset (the last one's output shares it), `take_axis0` index tiles
-at any offset, the other 2-D kernels 16-byte aligned tiles.
-`scatter_min` takes indices and values that lie at the same offset from
-a 16-byte boundary
-(views at any offset). The wrappers check this for CPU tensors too, so
+indices), both 16-byte aligned for the bulk copies. `take_two_level`
+takes a table that `CLUSTER_MAX` blocks hold (`table_plan`: 464,768
+entries), 16-byte aligned, and raises `ValueError` beyond it;
+`take_axis0` one whose slabs of 4 columns fit a block (`slab_plan`:
+1,859,584 entries), at any offset; the others take any size at any
+offset. `take` and `take_two_level` take indices at any offset (the last
+one's output shares it), `take_axis0` index tiles at any offset, the
+other 2-D kernels 16-byte aligned tiles. `scatter_min` takes indices and
+values that lie at the same offset from a 16-byte boundary (views at any
+offset). The wrappers check this for CPU tensors too, so
 that both devices take the same inputs.
 """
 
@@ -74,24 +71,20 @@ TILE = 8192  # the most indices of one scalar walk, the tool's tile
 SMEM_BLOCK = 232_448
 CLUSTER_MAX = 8
 BARRIER_BYTES = 16  # the mbarrier's slot at the head of a block's stage
-# the cluster size of C2 and V4 where the table allows it: the fastest of
-# k = 2, 4, 8 for both at n=100000 on the card (PERF.md section 6)
+# the cluster size of C2 where the table allows it: the fastest of k = 2, 4,
+# 8 at n=100000 on the card (PERF.md section 6)
 CLUSTER_DEFAULT = 2
 # V2's column slabs: the widths a block may own, and the default
 SLAB_COLS = (32, 16, 8, 4)
 SLAB_DEFAULT = 32
 KERNELS = ("take", "take_two_level", "take_scalar", "scatter_min", "take2d",
            "take_axis0", "take_axis1", "take_axis0_axis1")
-# the previous designs of C2, C3, C4, V4 and V2, kept to compare with
-PREVIOUS = ("take_two_level_chunks", "take_scalar_l2", "scatter_min_atomic",
-            "take_axis0_axis1_l2", "take_axis0_l2")
-NAMES = KERNELS + PREVIOUS
 
-launch_counts = {name: 0 for name in NAMES}
+launch_counts = {name: 0 for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in NAMES:
+    for name in KERNELS:
         launch_counts[name] = 0
 
 
@@ -137,7 +130,7 @@ def scalar_plan(n: int, e: int) -> ScalarPlan:
 
 
 class TablePlan(NamedTuple):
-    """How C2 and V4 lay a table of nt entries over a cluster of `blocks`
+    """How C2 lays a table of nt entries over a cluster of `blocks`
     blocks: block r holds entries [r slice, (r + 1) slice), the last what
     is left; `smem` is each block's dynamic shared memory in bytes."""
     blocks: int
@@ -173,8 +166,7 @@ def table_plan(nt: int, blocks: Optional[int] = None) -> TablePlan:
             f"a table of {nt} entries does not fit a cluster of {blocks} "
             f"blocks of {SMEM_BLOCK} bytes of shared memory each; a cluster "
             f"has 1 to {CLUSTER_MAX} blocks, which hold at most {cap} "
-            f"entries. The previous designs (take_two_level_chunks, "
-            f"take_axis0_axis1_l2) take any size")
+            f"entries")
     return TablePlan(blocks, *_table_smem(nt, blocks))
 
 
@@ -211,8 +203,7 @@ def slab_plan(nt: int, cols: Optional[int] = None) -> SlabPlan:
     raise ValueError(
         f"take_axis0: a slab of {tries[-1]} columns of a {nt}-entry table "
         f"does not fit a block's {SMEM_BLOCK} bytes of shared memory; "
-        f"slabs of {min(SLAB_COLS)} columns hold at most {cap} entries. "
-        f"The previous design (take_axis0_l2) takes any size")
+        f"slabs of {min(SLAB_COLS)} columns hold at most {cap} entries")
 
 
 def vector_split(ptr: int, e: int) -> Tuple[int, int]:
@@ -235,7 +226,7 @@ def build(extra_flags: Tuple[str, ...] = ()) -> Tuple[Path, str]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in NAMES:
+    for name in KERNELS:
         fn = getattr(lib, f"access_{name}")
         fn.argtypes = [ptr, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
@@ -244,15 +235,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                                       i32, ptr]
     lib.access_take_two_level.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                           i32, i32, i32, i32, ptr]
-    lib.access_take_two_level_chunks.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-    lib.access_take_axis0_axis1.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
-                                            i32, i32, i32, ptr]
     lib.access_take_scalar.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                        i32, i32, i32, ptr]
     lib.access_scatter_min.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
                                        i32, ptr]
-    lib.access_scatter_min_atomic.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                                              ptr]
     lib.access_sm_clock_khz.argtypes = [i32, ctypes.POINTER(i32)]
     lib.access_sm_clock_khz.restype = ctypes.c_int
 
@@ -419,20 +405,6 @@ def take_two_level(tab2d: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def take_two_level_chunks(tab2d: torch.Tensor,
-                          idx: torch.Tensor) -> torch.Tensor:
-    """C2's previous design: the table staged through shared memory in
-    chunks, each block reading its whole range of indices once a chunk;
-    any size."""
-    _check("take_two_level_chunks", tab2d, idx, two_level=True, tiles=False)
-    if _on_cpu(tab2d, idx):
-        return take_two_level_plain(tab2d, idx)
-    out = torch.empty_like(idx)
-    _launch("take_two_level_chunks", (tab2d, idx, out), tab2d.numel(),
-            idx.numel())
-    return out
-
-
 def take_scalar(table: torch.Tensor, idx: torch.Tensor,
                 cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C3: the lookup by one thread, one element after another, with the
@@ -452,35 +424,19 @@ def take_scalar(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def take_scalar_l2(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """C3's previous design: the one-thread walk against device memory,
-    table and indices served by L2; any E."""
-    _check("take_scalar_l2", table, idx, two_level=False, tiles=False)
-    if _on_cpu(table, idx):
-        return take_plain(table, idx)
-    out = torch.empty_like(idx)
-    _launch("take_scalar_l2", (table, idx, out), idx.numel())
-    return out
-
-
-def _scatter_args(name: str, idx, val, size: int) -> bool:
-    """Checks both scatter-min wrappers share; True for CPU tensors."""
-    if idx.dim() != 1 or idx.shape != val.shape or size <= 0:
-        raise ValueError(f"{name}: indices {tuple(idx.shape)} and values "
-                         f"{tuple(val.shape)} must be equal [E], size "
-                         f"{size} > 0")
-    if size >= 2 ** 31:
-        raise ValueError(f"{name}: a table of {size} entries does not fit "
-                         f"int32")
-    return _on_cpu(idx, val)
-
-
 def scatter_min(idx: torch.Tensor, val: torch.Tensor,
                 size: int) -> torch.Tensor:
     """C4: a `[size]` table of 2**30, min-reduced with `val` at `idx`;
     equal indices merged before the atomics. `idx` and `val` may be views
     at any offset, but at the same offset from a 16-byte boundary."""
-    cpu = _scatter_args("scatter_min", idx, val, size)
+    if idx.dim() != 1 or idx.shape != val.shape or size <= 0:
+        raise ValueError(f"scatter_min: indices {tuple(idx.shape)} and "
+                         f"values {tuple(val.shape)} must be equal [E], "
+                         f"size {size} > 0")
+    if size >= 2 ** 31:
+        raise ValueError(f"scatter_min: a table of {size} entries does not "
+                         f"fit int32")
+    cpu = _on_cpu(idx, val)
     if idx.data_ptr() % 16 != val.data_ptr() % 16:
         raise ValueError(f"scatter_min: indices at {idx.data_ptr():#x} and "
                          f"values at {val.data_ptr():#x} lie at different "
@@ -490,16 +446,6 @@ def scatter_min(idx: torch.Tensor, val: torch.Tensor,
     out = torch.empty((size,), dtype=torch.int32, device=idx.device)
     _launch("scatter_min", (idx, val, out), size, idx.numel(),
             *vector_split(idx.data_ptr(), idx.numel()), FILL)
-    return out
-
-
-def scatter_min_atomic(idx: torch.Tensor, val: torch.Tensor,
-                       size: int) -> torch.Tensor:
-    """C4's previous design: a fill, then one atomicMin an update."""
-    if _scatter_args("scatter_min_atomic", idx, val, size):
-        return scatter_min_plain(idx, val, size)
-    out = torch.empty((size,), dtype=torch.int32, device=idx.device)
-    _launch("scatter_min_atomic", (idx, val, out), size, idx.numel(), FILL)
     return out
 
 
@@ -552,40 +498,15 @@ def take_axis0(tab2d: torch.Tensor, idx2: torch.Tensor,
     return out
 
 
-def take_axis0_l2(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
-    """V2's previous design: the table reads from L2; any size, 16-byte
-    aligned tiles."""
-    return _tiles("take_axis0_l2", take_axis0_plain, tab2d, idx2)
-
-
 def take_axis1(tab2d: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
     """V3: out[i, j] = tab2d[0, idx2[i, j] % 128]."""
     return _tiles("take_axis1", take_axis1_plain, tab2d, idx2)
 
 
-def take_axis0_axis1(tab2d: torch.Tensor, idx2: torch.Tensor,
-                     blocks: Optional[int] = None,
-                     cycles: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """V4: V2, then V3's lane select on its result, with the table held as
-    in `take_two_level` and the lane select made by warp shuffles of the
-    indices: out[i, j] = tab2d[idx2[i, L] // 128, L], L = idx2[i, j] %
-    128. `cycles` as there."""
-    name = "take_axis0_axis1"
-    _check(name, tab2d, idx2, two_level=True, tiles=True)
-    cpu = _on_cpu(tab2d, idx2)
-    plan = table_plan(tab2d.numel(), blocks)
-    _aligned16(name, tab2d, idx2)
-    spans = _spans(name, cycles, cpu, tab2d)
-    if cpu:
-        return take_axis0_axis1_plain(tab2d, idx2)
-    out = torch.empty_like(idx2)
-    _launch(name, (tab2d, idx2, out), spans, tab2d.numel(), idx2.shape[0],
-            *plan)
-    return out
-
-
-def take_axis0_axis1_l2(tab2d: torch.Tensor,
-                        idx2: torch.Tensor) -> torch.Tensor:
-    """V4's previous design: the table reads from L2; any size."""
-    return _tiles("take_axis0_axis1_l2", take_axis0_axis1_plain, tab2d, idx2)
+def take_axis0_axis1(tab2d: torch.Tensor,
+                     idx2: torch.Tensor) -> torch.Tensor:
+    """V4: V2, then V3's lane select on its result
+    (`take_axis0_axis1_plain`), one warp an index row staging its row of
+    V2's result in shared memory; the table read from L2, any size."""
+    return _tiles("take_axis0_axis1", take_axis0_axis1_plain, tab2d, idx2)
 

@@ -244,7 +244,7 @@ def test_wrappers_reject_wrong_shapes():
         A.scatter_min(idx, _t(d["val"]), 0)
 
 
-@pytest.mark.parametrize("fn", [A.scatter_min, A.scatter_min_atomic])
+@pytest.mark.parametrize("fn", [A.scatter_min])
 @pytest.mark.parametrize("name", list(cases.STREAMS))
 def test_scatter_min_hub_streams_match_jnp(name, fn):
     idx, val = cases.hub_stream(name)
@@ -324,9 +324,6 @@ def test_take_scalar_rejects_unaligned_or_oversized_input():
             A.take_scalar(*bad)
     with pytest.raises(ValueError, match="card"):
         A.take_scalar(table, idx, cycles=torch.zeros(3, dtype=torch.int64))
-    # the previous design walks any E from any offset
-    _same(A.take_scalar_l2(table, idx[1:]),
-          jnp.asarray(d["table"])[jnp.asarray(d["idx"][1:])])
 
 
 def test_scatter_min_rejects_unaligned_or_oversized_input():
@@ -334,16 +331,11 @@ def test_scatter_min_rejects_unaligned_or_oversized_input():
     idx, val = _t(d["idx"]), _t(d["val"])
     with pytest.raises(ValueError, match="16-byte"):
         A.scatter_min(idx[1:4001], val[2:4002], NT)
-    for fn in (A.scatter_min, A.scatter_min_atomic):
-        with pytest.raises(ValueError, match="int32"):
-            fn(idx, val, 2 ** 31)
-    # the previous design takes any offsets
-    ref = jnp.full((NT,), 2 ** 30, jnp.int32).at[
-        jnp.asarray(d["idx"][1:4001])].min(jnp.asarray(d["val"][2:4002]))
-    _same(A.scatter_min_atomic(idx[1:4001], val[2:4002], NT), ref)
+    with pytest.raises(ValueError, match="int32"):
+        A.scatter_min(idx, val, 2 ** 31)
 
 
-# C2 and V4: the cluster-resident table. The largest table (a multiple of
+# C2: the cluster-resident table. The largest table (a multiple of
 # 128 entries) that k blocks hold: 58,108 entries a block
 TABLE_EDGES = {1: 57_984, 2: 116_096, 3: 174_208, 4: 232_320, 5: 290_432,
                6: 348_544, 7: 406_656, 8: 464_768}
@@ -355,7 +347,7 @@ def test_table_plan_edges(blocks, edge):
     default cluster cannot, the plan takes the fewest blocks that can."""
     plan = A.table_plan(edge, blocks)
     assert plan.blocks == blocks and plan.smem <= A.SMEM_BLOCK
-    with pytest.raises(ValueError, match="previous designs"):
+    with pytest.raises(ValueError, match="does not fit a cluster"):
         A.table_plan(edge + 128, blocks)
     assert A.table_plan(edge).blocks == max(A.CLUSTER_DEFAULT, blocks)
     if blocks < A.CLUSTER_MAX:
@@ -390,29 +382,24 @@ def test_table_plan_raises_beyond_a_cluster():
 
 
 def test_cluster_wrappers_refuse_a_table_beyond_a_cluster():
-    """On the CPU too: both devices take the same inputs. The previous
-    designs take it."""
+    """On the CPU too: both devices take the same inputs. V4, which reads
+    its table from L2, takes a table of any size."""
     tab2d = torch.zeros((464_896 // 128, 128), dtype=torch.int32)
     idx = torch.arange(0, 464_896, 97, dtype=torch.int32)
     idx2 = torch.arange(0, 464_896, 3632, dtype=torch.int32).view(1, 128)
-    for fn, i in ((A.take_two_level, idx), (A.take_axis0_axis1, idx2)):
-        with pytest.raises(ValueError, match="previous designs"):
-            fn(tab2d, i)
-    assert torch.equal(A.take_two_level_chunks(tab2d, idx),
-                       torch.zeros_like(idx))
-    assert torch.equal(A.take_axis0_axis1_l2(tab2d, idx2),
+    with pytest.raises(ValueError, match="does not fit a cluster"):
+        A.take_two_level(tab2d, idx)
+    assert torch.equal(A.take_axis0_axis1(tab2d, idx2),
                        torch.zeros_like(idx2))
     # the largest table a cluster holds is taken
-    small = tab2d[:464_768 // 128]
-    A.take_two_level(small, idx % 464_768)
-    A.take_axis0_axis1(small, idx2 % 464_768)
+    A.take_two_level(tab2d[:464_768 // 128], idx % 464_768)
 
 
 @pytest.mark.parametrize("e,m", SHAPES)
 def test_axis0_axis1_shuffle_identity_matches_jnp(e, m):
-    """V4's form on the card: out[i, j] = tab2d[idx[i, L] // 128, L] with
-    L = idx[i, j] % 128, against the tool's two `take_along_axis` calls
-    (`tools/probe_access2.py:115-120`'s expression)."""
+    """V4's function in the form out[i, j] = tab2d[idx[i, L] // 128, L]
+    with L = idx[i, j] % 128, against the tool's two `take_along_axis`
+    calls (`tools/probe_access2.py:115-120`'s expression)."""
     d = _inputs(e, m, 10)
     idx2, tab2d = _t(d["idx2"]), _t(d["tab2d"])
     lanes = (idx2 % 128).long()
@@ -434,11 +421,6 @@ def test_cluster_wrappers_take_their_options_on_the_cpu():
         _same(A.take_two_level(tab2d, idx, blocks=blocks), ref)
     # indices at any offset
     _same(A.take_two_level(tab2d, idx[1:4094]), ref[1:4094])
-    j2 = jnp.asarray(d["idx2"])
-    ref2 = jnp.take_along_axis(jnp.take_along_axis(
-        jnp.asarray(d["tab2d"]), j2 // 128, axis=0), j2 % 128, axis=1)
-    for blocks in (None, 1, 8):
-        _same(A.take_axis0_axis1(tab2d, idx2, blocks=blocks), ref2)
     with pytest.raises(ValueError, match="card"):
         A.take_two_level(tab2d, idx, cycles=torch.zeros(3, dtype=torch.int64))
     flat = torch.zeros(NT + 1, dtype=torch.int32)
@@ -576,7 +558,7 @@ def test_slab_plan_edges(nt, cols):
 def test_slab_plan_raises_past_slabs_of_4_columns():
     with pytest.raises(ValueError, match="1859584 entries"):
         A.slab_plan(1_859_584 + 128)
-    with pytest.raises(ValueError, match="previous design"):
+    with pytest.raises(ValueError, match="does not fit a block"):
         A.slab_plan(232_576, cols=32)
     for bad in (0, 1000):
         with pytest.raises(ValueError):
@@ -588,7 +570,7 @@ def test_slab_plan_raises_past_slabs_of_4_columns():
 def test_take_and_slab_wrappers_take_their_options_on_the_cpu():
     """A slab width runs the plain version on the CPU; views at any offset
     are taken; a cycles buffer and a table past the plan are refused there
-    as on the card; the previous design takes it, and C1 any table."""
+    as on the card; C1 takes any table."""
     d = _inputs(4096, 32, 16)
     table, idx = _t(d["table"]), _t(d["idx"])
     tab2d, idx2 = _t(d["tab2d"]), _t(d["idx2"])
@@ -606,9 +588,8 @@ def test_take_and_slab_wrappers_take_their_options_on_the_cpu():
     big = torch.zeros(332_257, dtype=torch.int32)
     assert torch.equal(A.take(big, idx), torch.zeros_like(idx))
     wide = torch.zeros((1_859_584 // 128 + 1, 128), dtype=torch.int32)
-    with pytest.raises(ValueError, match="take_axis0_l2"):
+    with pytest.raises(ValueError, match="slabs of 4 columns hold at most"):
         A.take_axis0(wide, idx2)
-    assert torch.equal(A.take_axis0_l2(wide, idx2), torch.zeros_like(idx2))
 
 
 def test_take2d_takes_its_options_on_the_cpu():

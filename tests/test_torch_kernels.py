@@ -10,13 +10,13 @@ atol 1e-6, in float32 with TF32 off; on alike rows all three kernels are
 held against float64, within 1e-4 of the largest entry (dB 2e-4 on rows
 alike to 0.003, where the rounding of its float32 coefficients reaches it
 through its column sums). The access probes are int32 and must be
-bit-equal: the eight kernels and the previous designs of C2, C3, C4, V2
-and V4 at the probes' shapes, C1 and V1 on ragged and offset indices and
-unaligned tables, C1 and both scatter-mins on hub-heavy streams
-(`tests/test_torch_access_cases.py`), the cluster walk of C3 at each
-cluster size of its plan, with its cycle counts, the cluster-resident
-table of C2 and V4 at each swept cluster size, at the plan's capacity edge,
-on ragged and offset indices, with their spans, and the column slabs of
+bit-equal: the eight kernels at the probes' shapes, C1 and V1 on ragged
+and offset indices and unaligned tables, C1 and the scatter-min on
+hub-heavy streams (`tests/test_torch_access_cases.py`), the cluster walk
+of C3 at each cluster size of its plan, with its cycle counts, the
+cluster-resident table of C2 at each swept cluster size, at the plan's
+capacity edge, on ragged and offset indices, with its spans, V4 on a
+table past that edge, and the column slabs of
 V2 at each slab width, on ragged, offset and hub-heavy indices, at the
 plan's edges. The roofline's price measurement holds C1 and C4 bit-equal
 before it times them.
@@ -222,7 +222,7 @@ ACCESS_SHAPES = [(4096, 16384, 128), (1000, 12345, 97)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", A.NAMES)
+@pytest.mark.parametrize("name", A.KERNELS)
 @pytest.mark.parametrize("n,e,m", ACCESS_SHAPES)
 def test_cuda_access_kernel_matches_plain(name, n, e, m):
     _needs_card()
@@ -236,15 +236,14 @@ def test_cuda_access_kernel_matches_plain(name, n, e, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["take_two_level", "take_two_level_chunks"])
-def test_cuda_two_level_take_covers_several_chunks(fn):
-    """Both designs of C2 on a table of more than one chunk of the
-    previous design (57344 entries) and more than the default cluster's
-    slices where that is 2 blocks."""
+def test_cuda_two_level_take_covers_several_chunks():
+    """C2 on a table of 150,001 entries, more than the default cluster of
+    2 blocks holds: the plan takes 3."""
     _needs_card()
     inp = P.make_inputs(150_001, 50_000, 1, 1, "cuda", seed=5)
     idx = inp["idx"][0]
-    got = getattr(A, fn)(inp["tab2d"], idx)
+    assert A.table_plan(inp["nt"]).blocks == 3
+    got = A.take_two_level(inp["tab2d"], idx)
     assert torch.equal(got, A.take_two_level_plain(inp["tab2d"], idx))
     torch.cuda.synchronize()
 
@@ -254,83 +253,76 @@ def _cluster_case(n, e, m, seed):
     return inp["tab2d"], inp["idx"][0], inp["idx2"][0]
 
 
-CLUSTER_KERNELS = ["take_two_level", "take_axis0_axis1"]
-
-
-def _cluster_run(fn, n, e, m, seed, blocks):
-    """`fn` at a cluster of `blocks` (None: the plan's) on a fresh case,
+def _cluster_run(n, e, seed, blocks):
+    """C2 at a cluster of `blocks` (None: the plan's) on a fresh case,
     bit-equal to its plain version in one launch; its spans."""
-    tab2d, idx, idx2 = _cluster_case(n, e, m, seed)
-    arg = idx2 if "axis" in fn else idx
-    plain = A.take_axis0_axis1_plain if "axis" in fn \
-        else A.take_two_level_plain
+    tab2d, idx, _idx2 = _cluster_case(n, e, 1, seed)
     cyc = torch.zeros(3, dtype=torch.int64, device="cuda")
-    before = A.launch_counts[fn]
-    got = getattr(A, fn)(tab2d, arg, blocks=blocks, cycles=cyc)
+    before = A.launch_counts["take_two_level"]
+    got = A.take_two_level(tab2d, idx, blocks=blocks, cycles=cyc)
     torch.cuda.synchronize()
-    assert torch.equal(got, plain(tab2d, arg))
-    assert A.launch_counts[fn] == before + 1
+    assert torch.equal(got, A.take_two_level_plain(tab2d, idx))
+    assert A.launch_counts["take_two_level"] == before + 1
     return cyc.tolist()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", CLUSTER_KERNELS)
 @pytest.mark.parametrize("blocks", [None, 1, 2, 4, 8])
-def test_cuda_cluster_table_matches_plain(fn, blocks):
-    """C2 and V4 at n=100000 at every cluster size that holds the table
-    (and the default plan), bit-equal, with positive staging and lookup
-    spans and a whole grid of clusters."""
+def test_cuda_cluster_table_matches_plain(blocks):
+    """C2 at n=100000 at every cluster size that holds the table (and the
+    default plan), bit-equal, with positive staging and lookup spans and a
+    whole grid of clusters."""
     _needs_card()
     if blocks is not None and not A.table_fits(100_096, blocks):
-        tab2d, idx, idx2 = _cluster_case(100_000, 4096, 32, 3)
+        tab2d, idx, _idx2 = _cluster_case(100_000, 4096, 1, 3)
         with pytest.raises(ValueError):
-            getattr(A, fn)(tab2d, idx2 if "axis" in fn else idx,
-                           blocks=blocks)
+            A.take_two_level(tab2d, idx, blocks=blocks)
         return
-    stage, lookup, clusters = _cluster_run(fn, 100_000, 1_600_000, 12_500,
-                                           3, blocks)
+    stage, lookup, clusters = _cluster_run(100_000, 1_600_000, 3, blocks)
     assert stage > 0 and lookup > 0 and clusters >= 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", CLUSTER_KERNELS)
 @pytest.mark.parametrize("blocks", [1, 2, 8])
-def test_cuda_cluster_table_small_table(fn, blocks):
+def test_cuda_cluster_table_small_table(blocks):
     """A table of 1000 entries (8 rows) at a cluster of 1 block, of 2,
     and of 8, where some blocks hold no entry."""
     _needs_card()
-    stage, lookup, clusters = _cluster_run(fn, 1000, 12_345, 97, 7, blocks)
+    stage, lookup, clusters = _cluster_run(1000, 12_345, 7, blocks)
     assert stage > 0 and lookup > 0 and clusters >= 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", CLUSTER_KERNELS)
-def test_cuda_cluster_table_at_its_capacity_edge(fn):
+def test_cuda_cluster_table_at_its_capacity_edge():
     """The largest table a cluster of 8 holds, bit-equal; one row more is
-    refused on the card, not run some other way."""
+    refused on the card, not run some other way. V4, which reads its
+    table from L2, takes that table."""
     _needs_card()
     edge = 464_768
     assert A.table_plan(edge).blocks == 8
-    _cluster_run(fn, edge, 40_000, 300, 4, None)
-    tab2d, idx, idx2 = _cluster_case(1000, 4096, 32, 4)
-    bigger = torch.zeros((edge // 128 + 1, 128), dtype=torch.int32,
-                         device="cuda")
-    with pytest.raises(ValueError, match="previous designs"):
-        getattr(A, fn)(bigger, idx2 if "axis" in fn else idx)
+    _cluster_run(edge, 40_000, 4, None)
+    _tab2d, idx, idx2 = _cluster_case(1000, 4096, 32, 4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bigger = torch.randint(0, 1 << 30, (edge // 128 + 1, 128), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not fit a cluster"):
+        A.take_two_level(bigger, idx)
+    got = A.take_axis0_axis1(bigger, idx2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, A.take_axis0_axis1_plain(bigger, idx2))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["take_two_level", "take_two_level_chunks"])
 @pytest.mark.parametrize("skip,e", [(0, 4097), (1, 4097), (1, 50_000),
                                     (2, 3), (3, 1), (1, 0)])
-def test_cuda_two_level_take_ragged_and_offset_indices(fn, skip, e):
+def test_cuda_two_level_take_ragged_and_offset_indices(skip, e):
     """E not a multiple of 4, and index views 1-3 elements into their
     storage: a head before the first 16-byte boundary and a tail."""
     _needs_card()
     tab2d, idx, _idx2 = _cluster_case(100_000, e + skip, 1, 6)
     view = idx[skip:]
     assert view.numel() == e
-    got = getattr(A, fn)(tab2d, view)
+    got = A.take_two_level(tab2d, view)
     torch.cuda.synchronize()
     assert got.shape == view.shape
     assert torch.equal(got, A.take_two_level_plain(tab2d, view))
@@ -463,16 +455,13 @@ def test_cuda_take_matches_plain(skip, e):
 
 def _slab_run(nt, idx2, seed=0, **kw):
     """`take_axis0` (with its spans) on a fresh [nt / 128, 128] table,
-    bit-equal to the plain version, and `take_axis0_l2` where the tiles
-    are 16-byte aligned; the spans."""
+    bit-equal to the plain version; the spans."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     tab2d = torch.randint(0, 1 << 30, (nt // 128, 128), generator=gen,
                           device="cuda", dtype=torch.int32)
     cyc = torch.zeros(3, dtype=torch.int64, device="cuda")
     got = A.take_axis0(tab2d, idx2, cycles=cyc, **kw)
     ref = A.take_axis0_plain(tab2d, idx2)
-    if idx2.data_ptr() % 16 == 0:
-        assert torch.equal(A.take_axis0_l2(tab2d, idx2), ref)
     torch.cuda.synchronize()
     assert got.shape == idx2.shape and torch.equal(got, ref)
     return cyc.tolist()
@@ -538,14 +527,13 @@ def test_cuda_take_axis0_refuses_a_table_past_its_plan():
     wide = torch.zeros((1_859_584 // 128 + 1, 128), dtype=torch.int32,
                        device="cuda")
     idx2 = _tiles_at(1000, 4, 13)
-    with pytest.raises(ValueError, match="take_axis0_l2"):
+    with pytest.raises(ValueError, match="slabs of 4 columns hold at most"):
         A.take_axis0(wide, idx2)
     with pytest.raises(ValueError):
         A.take_axis0(wide[:1817], idx2, cols=32)
-    assert torch.equal(A.take_axis0_l2(wide, idx2), torch.zeros_like(idx2))
 
 
-@pytest.mark.parametrize("name", A.NAMES)
+@pytest.mark.parametrize("name", A.KERNELS)
 def test_access_cpu_tensors_take_the_plain_version(name):
     inp = P.make_inputs(1000, 777, 5, 1, "cpu", seed=3)
     kern, plain, args = P._calls(inp)[name]
@@ -555,7 +543,7 @@ def test_access_cpu_tensors_take_the_plain_version(name):
     assert A.launch_counts == before
 
 
-@pytest.mark.parametrize("name", A.NAMES)
+@pytest.mark.parametrize("name", A.KERNELS)
 def test_access_wrappers_never_fall_back_off_the_cpu(name):
     """A `meta` tensor never reaches the plain version: the wrapper
     raises. So does a wrong shape."""
@@ -578,15 +566,14 @@ def test_access_wrappers_never_fall_back_off_the_cpu(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["scatter_min", "scatter_min_atomic"])
 @pytest.mark.parametrize("stream", list(cases.STREAMS))
-def test_cuda_scatter_min_hub_streams_match_plain(stream, fn):
+def test_cuda_scatter_min_hub_streams_match_plain(stream):
     """Runs of one index up to 3000 long, a ragged E, E < 32, one index
     only, and views one element into their storage (a head of 3 updates
     before the first 16-byte boundary)."""
     _needs_card()
     idx, val = cases.hub_stream(stream, "cuda")
-    got = getattr(A, fn)(idx, val, cases.SIZE)
+    got = A.scatter_min(idx, val, cases.SIZE)
     ref = A.scatter_min_plain(idx, val, cases.SIZE)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -602,7 +589,7 @@ SCALAR_CASES = [(1000, 8192, 1), (49_916, 8192, 1), (49_917, 8192, 2),
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,e,blocks", SCALAR_CASES)
 def test_cuda_take_scalar_cluster_matches_plain(n, e, blocks):
-    """Both designs of C3 bit-equal; the cycles buffer holds positive
+    """C3 bit-equal; the cycles buffer holds positive
     staging and walk spans and counts as remote exactly the indices past
     block 0's slice."""
     _needs_card()
@@ -615,10 +602,9 @@ def test_cuda_take_scalar_cluster_matches_plain(n, e, blocks):
                         dtype=torch.int32)
     cyc = torch.zeros(3, dtype=torch.int64, device="cuda")
     got = A.take_scalar(table, idx, cycles=cyc)
-    prev = A.take_scalar_l2(table, idx)
     ref = A.take_plain(table, idx)
     torch.cuda.synchronize()
-    assert torch.equal(got, ref) and torch.equal(prev, ref)
+    assert torch.equal(got, ref)
     stage, walk, remote = cyc.tolist()
     assert stage > 0 and walk > 0
     assert remote == int((idx >= plan.head).sum())
@@ -646,18 +632,16 @@ def test_probe_entry_point_runs_on_the_cpu():
     lines = []
     res = P.run(1000, 4096, 2, device="cpu", emit=lines.append)
     assert res["device"] == "cpu" and res["timer"] == "host clock"
-    assert set(res["kernels"]) == set(A.KERNELS)
-    assert set(res["previous"]) == set(A.PREVIOUS)
-    for row in [*res["kernels"].values(), *res["previous"].values()]:
+    assert set(res) >= {"kernels", "by_cluster", "by_slab", "read_rates"}
+    assert "previous" not in res and set(res["kernels"]) == set(A.KERNELS)
+    for row in res["kernels"].values():
         assert row["max_abs_err"] == 0 and row["launches"] == 0
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert any(line.startswith("A1 ") for line in lines)
     # the cluster sweep: every size that holds the table, no card numbers
-    assert set(res["by_cluster"]) == {"take_two_level", "take_axis0_axis1"}
-    for rows in res["by_cluster"].values():
-        assert set(rows) == {"2", "4", "8"}
-        assert all("clusters" not in row and row["ms"] > 0
-                   for row in rows.values())
+    assert set(res["by_cluster"]) == {"2", "4", "8"}
+    assert all("clusters" not in row and row["ms"] > 0
+               for row in res["by_cluster"].values())
     assert set(res["read_rates"]) == set(P.RATED)
 
 
@@ -673,16 +657,12 @@ def test_read_rates_split_a_launch_on_the_cpu(name):
 
 
 def test_time_stream_runs_on_the_cpu():
-    """`time_stream` on a hub stream: every kernel and previous design
-    bit-equal to its plain version, and the atomics C4's merge leaves."""
+    """`time_stream` on a hub stream: every kernel bit-equal to its plain
+    version, and the atomics C4's merge leaves."""
     idx, val = cases.hub_stream("runs_to_3000")
     table = torch.arange(cases.SIZE, dtype=torch.int32) * 7
     res = P.time_stream(table, idx, idx, val, 2)
-    assert res["max_abs_err"] == {name: 0 for name in (
-        "take", "take2d", "take_two_level",
-        "take_two_level_chunks", "take_axis0", "take_axis0_l2", "take_axis1",
-        "take_axis0_axis1", "take_axis0_axis1_l2", "take_scalar",
-        "take_scalar_l2", "scatter_min", "scatter_min_atomic")}
+    assert res["max_abs_err"] == {name: 0 for name in A.KERNELS}
     assert res["scatter_min_reds"] == P.merged_reds(idx) == 183
     assert all(res[k] > 0 for k in ("scatter_min_ms", "take_scalar_ms"))
 
