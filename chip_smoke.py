@@ -16,7 +16,8 @@
    clusters and of V2's slabs, and how many
    `wgmma` (HGMMA) and full
    waits behind them (WARPGROUP.DEPBAR) the machine code of each `wgmma`
-   kernel holds.
+   kernel holds; the pair kernels may hold no more than the one-way
+   kernels they stand for.
 3. Holds each InfoNCE kernel against its plain PyTorch version: n=2048
    f=128 and ragged n=1000 f=100, masked and unmasked, tau 0.2 and 0.5;
    the ragged shapes n=70 f=300, n=129 f=100, n=4097 f=72, n=500 f=50
@@ -31,7 +32,12 @@
    except dB at spread 0.003, within 2e-4 (the rounding of its float32
    coefficients reaches it through its column sums), with the error of the
    plain float32 versions and of the plain emulation of the kernels' 3xTF32
-   arithmetic beside.
+   arithmetic beside. The pair kernels (both directions of the dual-branch
+   loss at once) at every shape above that takes them (f <= 128, f % 4 ==
+   0): the forward against its plain version, the gradient against its
+   plain version on both sides; on alike rows against float64, within
+   1e-4 at both spreads; timed at the main path's shape beside the
+   one-way launches a loss takes otherwise.
 3b. SpMM phase (`spmm_phase`): on an rLap view of BA(169343, 7) through
    `gcn_norm`, the training cells' graph, at f = 128 and 512, holds the
    kernel's forward and dx against `spmm_plain` (rtol 1e-5 / atol 1e-5)
@@ -72,8 +78,9 @@
    FeatureMasking(0.3)]) x 2, hidden 128, 2 layers) on BA(n, m=8) with
    128-d features, 1 warm-up and 3 timed steps, with the InfoNCE counts
    set to 0 just before and read just after, and checks that each view
-   removed int(0.2 n) nodes, that the losses are finite, and that each
-   InfoNCE kernel ran twice per step and the SpMM kernel four times
+   removed int(0.2 n) nodes, that the losses are finite, and that the
+   loss ran the pair kernels (a pair forward and two pair gradient
+   launches a step, no one-way launch) and the SpMM kernel four times
    forward and four backward. Then one more step under the
    profiler (`rlap_tpu_torch.utils.tracing`), read by the trainer's own
    spans (`trainer.views`, `.forward`, `.loss`, `.backward`,
@@ -102,35 +109,36 @@
    and power limit) and
    `rlap_tpu_torch.bench.epoch.run` (GRACE epochs with separate and with
    paired rLap views, 3 timed after the first), with the InfoNCE counts
-   set to 0 just before and read just after: each kernel twice an epoch
-   in both variants, and every view must remove int(0.2 n) nodes.
+   set to 0 just before and read just after: a pair forward and two pair
+   gradient launches an epoch in both variants, and every view must
+   remove int(0.2 n) nodes.
 8. The recipe CLI phase, through `rlap_tpu_torch.cli.run.run_one` with no
    `device=` (the synthetic stand-ins, as no dataset files are there):
-   GRACE on the PUBMED stand-in (n=19717, f=500) with EdgeDroppingPR
-   views, hidden 128, 3 epochs, with the InfoNCE counts set to 0 just
-   before and read just after (each kernel twice an epoch); MVGRL on the
-   PUBMED stand-in with PPR diffusion views (the 8192-node subsample
-   runs; both views must keep at least 8192 nodes; the PPR build is
-   timed); CCA-SSG on the CORA stand-in with rLap views; GraphCL and BGRL
-   on the MUTAG stand-in with rLap views. Each run's JSONL must hold every
-   event, finite losses and accuracies in [0, 1]; each epoch is timed
-   on its own, apart from the trainer's set-up; MVGRL's last epoch is
-   run once more afterwards under the profiler, for its idle share and
-   top device ops. Then every one of the
-   17 registry names and the 10 CCA-SSG functions builds views of the
-   CORA stand-in (n=2708, f=512) on the card, each checked (indices in
-   range, padding = sentinel with weight 0, symmetric unless a diffusion
-   or an adaptive drop, finite weights) and timed, and
-   `rlap_tpu_torch.bench.augmentors.bench_all` measures each name's
-   latency and device memory there; and the InfoNCE kernels are timed at
-   GRACE's shape, n=19717, f=128.
+   GRACE on the PUBMED stand-in (n=19717, f=500) with EdgeDroppingPR views,
+   hidden 128, 3 epochs, with the InfoNCE counts set to 0 just before and
+   read just after (the pair's three launches an epoch); MVGRL on the
+   PUBMED stand-in with PPR diffusion views (the 8192-node subsample runs;
+   both views must keep at least 8192 nodes; the PPR build is timed);
+   CCA-SSG on the CORA stand-in with rLap views; GraphCL and BGRL on the
+   MUTAG stand-in with rLap views. Each run's JSONL must hold every event,
+   finite losses and accuracies in [0, 1]; each epoch is timed on its own,
+   apart from the trainer's set-up; MVGRL's last epoch is run once more
+   afterwards under the profiler, for its idle share and top device ops.
+   Then every one of the 17 registry names and the 10 CCA-SSG functions
+   builds views of the CORA stand-in (n=2708, f=512) on the card, each
+   checked (indices in range, padding = sentinel with weight 0, symmetric
+   unless a diffusion or an adaptive drop, finite weights) and timed, and
+   `rlap_tpu_torch.bench.augmentors.bench_all` measures each name's latency
+   and device memory there; and the InfoNCE kernels are timed at GRACE's
+   shape, n=19717, f=128.
 9. The sharded phase (`rlap_tpu_torch.parallel`), at the main path's
    BA(n, m=8), f=128, in spawned ranks: world 1 over NCCL, then world 2
    on the one card over gloo with CUDA tensors (NCCL takes one card a
    rank). At each, in the same ranks, the dry run of `dryrun_multichip`
    (the distributed rLap at n=4096, then 3 GRACE steps whose views come
    from `eliminate_sharded`, with the InfoNCE counts of each rank set to 0
-   just before the steps and read just after: each kernel twice a step;
+   just before the steps and read just after: the pair's three launches a
+   step;
    losses and parameters equal on every rank), and `sharded_checks`: the
    sharded `spmm` against the local one, 3 `GraceTrainer(mesh=...)` steps
    against the local trainer's losses, and a sharded rLap view (t = 0.2 n)
@@ -140,7 +148,7 @@
    t = n/2 call beside the single-device `eliminate`'s.
 10. Prints one JSON line of the SpMM phase, one of the probe, one of the
    main path, one of each bench, one of the CLI phase, one of the sharded
-   phase, one of all eleven kernels and the SpMM
+   phase, one of all eleven kernels, the two pair kernels and the SpMM
    (each row with the card's name and power limit), the nvidia-smi line,
    and last
    {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -228,6 +236,9 @@ REPLACES = {
     "infonce_fwd": "rlap_tpu/ops/infonce_pallas.py:37",
     "infonce_bwd_da": "rlap_tpu/ops/infonce_pallas.py:86",
     "infonce_bwd_db": "rlap_tpu/ops/infonce_pallas.py:104",
+    "infonce_fwd_pair": "rlap_tpu/ops/infonce_pallas.py:37, both directions",
+    "infonce_bwd_pair": "rlap_tpu/ops/infonce_pallas.py:86 and :104, both "
+                        "directions",
     "take": "tools/probe_access.py:139",
     "take_two_level": "tools/probe_access.py:180",
     "take_scalar": "tools/probe_access.py:215",
@@ -238,12 +249,24 @@ REPLACES = {
     "take_axis0_axis1": "tools/probe_access2.py:194",
 }
 TOL = {"infonce_fwd": (1e-5, 1e-5), "infonce_bwd_da": (1e-4, 1e-6),
-       "infonce_bwd_db": (1e-4, 1e-6)}
+       "infonce_bwd_db": (1e-4, 1e-6), "infonce_fwd_pair": (1e-5, 1e-5),
+       "infonce_bwd_pair": (1e-4, 1e-6)}
+INFONCE = K.KERNELS + K.PAIR_KERNELS
+# InfoNCE launches of one GRACE loss at f = 128: the pair
+PAIR_LOSS = {"infonce_fwd": 0, "infonce_bwd_da": 0, "infonce_bwd_db": 0,
+             "infonce_fwd_pair": 1, "infonce_bwd_pair": 2}
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def require_pair_launches(counts: dict, losses: int, label: str) -> None:
+    """`losses` GRACE losses at f = 128 ran the pair kernels alone."""
+    want = {k: v * losses for k, v in PAIR_LOSS.items()}
+    require(counts == want, f"{label}: InfoNCE launches {counts}, expected "
+            f"{want} for {losses} losses")
 
 
 def close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float,
@@ -262,12 +285,17 @@ def bound(name: str, n: int, f: int) -> dict:
     """The least time on the card, whatever the implementation. Each input
     is read once and each output written once at the HBM rate; the forward
     does 2 n^2 f and each gradient 4 n^2 f useful FLOPs, at the TF32
-    tensor-core peak. A kernel that takes three TF32 passes to keep float32
-    accuracy can reach a third of that. `fp32_fma_bound_ms` is the same
-    work at the float32 FMA peak, the bound of a kernel that stays outside
-    the tensor cores."""
+    tensor-core peak (the pair forward: one similarity matrix for both
+    directions, 2 n^2 f; a pair gradient launch 4 n^2 f). A kernel that
+    takes three TF32 passes to keep float32 accuracy can reach a third of
+    that. `fp32_fma_bound_ms` is the same work at the float32 FMA peak, the
+    bound of a kernel that stays outside the tensor cores."""
     if name == "infonce_fwd":
         nbytes, flops = 4 * (2 * n * f + 2 * n), 2.0 * n * n * f
+    elif name == "infonce_fwd_pair":
+        nbytes, flops = 4 * (2 * n * f + 4 * n), 2.0 * n * n * f
+    elif name == "infonce_bwd_pair":
+        nbytes, flops = 4 * (3 * n * f + 4 * n), 4.0 * n * n * f
     else:
         nbytes, flops = 4 * (3 * n * f + 2 * n), 4.0 * n * n * f
     t_bytes, t_ops = nbytes / HBM_BYTES, flops / TF32_FLOPS
@@ -304,7 +332,28 @@ def check_case(n, f, masked, tau, errs, seed):
                   kern(a, b, lse_p, g, tau), plain(a, b, lse_p, g, tau),
                   rt, at)
         errs[name] = max(errs[name], e)
+    if K.takes_pair(a, b):
+        check_pair_case(a, b, g, tau, errs, f"n={n} f={f} tau={tau} "
+                        f"masked={masked}")
     torch.cuda.synchronize()
+
+
+def check_pair_case(a, b, g, tau, errs, label):
+    """The pair forward against its plain version, and the pair gradient
+    against its plain version on both sides (g for both directions)."""
+    rt, at = TOL["infonce_fwd_pair"]
+    plain = K.infonce_fwd_pair_plain(a, b, tau)
+    e = max(close(f"fwd pair {label}", x, p, rt, at)
+            for x, p in zip(K.infonce_fwd_pair(a, b, tau), plain))
+    errs["infonce_fwd_pair"] = max(errs["infonce_fwd_pair"], e)
+    _o1, lse1, _o2, lse2 = plain
+    rt, at = TOL["infonce_bwd_pair"]
+    for p, q, own, other in ((a, b, lse1, lse2), (b, a, lse2, lse1)):
+        e = close(f"bwd pair {label}",
+                  K.infonce_bwd_pair(p, q, own, g, other, g, tau),
+                  K.infonce_bwd_pair_plain(p, q, own, g, other, g, tau),
+                  rt, at)
+        errs["infonce_bwd_pair"] = max(errs["infonce_bwd_pair"], e)
 
 
 def check_autograd(n, f, tau, seed):
@@ -380,8 +429,53 @@ def check_against_float64(n: int, f: int, spread: float, seed: int,
           f"{json.dumps(report)}", flush=True)
 
 
+def check_pair_against_float64(n: int, f: int, spread: float, seed: int,
+                               bar: float = 1e-4) -> None:
+    """`check_against_float64` for the pair: both directions' values and
+    both sides' gradients of 0.5 (l(a, b) + l(b, a)) within `bar` of the
+    largest entry of the float64 result, with the plain float32 versions'
+    errors and the plain emulation's beside."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.randn(1, f, generator=gen, device="cuda")
+    a, b = (K.l2norm(c + spread * torch.randn(n, f, generator=gen,
+                                              device="cuda")).contiguous()
+            for _ in range(2))
+    g = torch.full((n,), -0.5 / n, device="cuda")
+    a64, b64, g64 = a.double(), b.double(), g.double()
+    o1_64, lse1_64, o2_64, lse2_64 = K.infonce_fwd_pair_plain(a64, b64, 0.2)
+    lse1, lse2 = lse1_64.float(), lse2_64.float()
+
+    def grads(p, q, lo, ls, gg, fn):
+        return fn(p, q, lo, gg, ls, gg, 0.2)
+
+    refs = {"out1": o1_64, "out2": o2_64,
+            "da": grads(a64, b64, lse1_64, lse2_64, g64,
+                        K.infonce_bwd_pair_plain),
+            "db": grads(b64, a64, lse2_64, lse1_64, g64,
+                        K.infonce_bwd_pair_plain)}
+    fwd, fwd_plain = (K.infonce_fwd_pair(a, b, 0.2),
+                      K.infonce_fwd_pair_plain(a, b, 0.2))
+    fwd_emu = K.infonce_fwd_pair_3xtf32_plain(a, b, 0.2)
+    sides = {"da": (a, b, lse1, lse2), "db": (b, a, lse2, lse1)}
+    got = {"out1": (fwd[0], fwd_plain[0], fwd_emu[0]),
+           "out2": (fwd[2], fwd_plain[2], fwd_emu[2])}
+    for side, (p, q, lo, ls) in sides.items():
+        got[side] = tuple(grads(p, q, lo, ls, g, fn) for fn in (
+            K.infonce_bwd_pair, K.infonce_bwd_pair_plain,
+            K.infonce_bwd_pair_3xtf32_plain))
+    torch.cuda.synchronize()
+    report = {k: {"kernel": rel_err(v[0], refs[k]),
+                  "plain_f32": rel_err(v[1], refs[k]),
+                  "emulation_3xtf32": rel_err(v[2], refs[k]), "bar": bar}
+              for k, v in got.items()}
+    require(all(r["kernel"] <= bar for r in report.values()),
+            f"pair against float64 at n={n} spread={spread}: {report}")
+    print(f"pair against float64, n={n} spread={spread}, error / max "
+          f"entry: {json.dumps(report)}", flush=True)
+
+
 def kernel_phase(n_main: int, f_main: int) -> dict:
-    errs = {name: 0.0 for name in K.KERNELS}
+    errs = {name: 0.0 for name in INFONCE}
     seed = 0
     for n, f in ((2048, 128), (1000, 100)):
         for masked in (False, True):
@@ -404,6 +498,10 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
     check_against_float64(20000, f_main, 0.003, 102,
                           bars={"infonce_fwd": 1e-4, "infonce_bwd_da": 1e-4,
                                 "infonce_bwd_db": 2e-4})
+    # the pair adds back only its streamed rows' sums, so both of its sides
+    # hold dA's bar
+    for spread, seed in ((0.03, 103), (0.003, 104)):
+        check_pair_against_float64(20000, f_main, spread, seed)
     print(f"kernel checks passed; max abs err {json.dumps(errs)}",
           flush=True)
 
@@ -417,13 +515,26 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
         "infonce_bwd_db": (lambda: K.infonce_bwd_db(a, b, lse, g, 0.2),
                            lambda: K.infonce_bwd_db_plain(a, b, lse, g, 0.2)),
     }
+    _o1, lse1, _o2, lse2 = K.infonce_fwd_pair_plain(a, b, 0.2)
+    calls.update({
+        "infonce_fwd_pair": (lambda: K.infonce_fwd_pair(a, b, 0.2),
+                             lambda: K.infonce_fwd_pair_plain(a, b, 0.2)),
+        "infonce_bwd_pair": (
+            lambda: K.infonce_bwd_pair(a, b, lse1, g, lse2, g, 0.2),
+            lambda: K.infonce_bwd_pair_plain(a, b, lse1, g, lse2, g, 0.2))})
     rows = {}
     for name, (kern, plain) in calls.items():
         rows[name] = dict(ms=cuda_ms(kern, 3), plain_ms=cuda_ms(plain, 3),
                           **bound(name, n_main, f_main))
         print(f"{name} at n={n_main} f={f_main}: {json.dumps(rows[name])}",
               flush=True)
-    del a, b, g, lse
+    # a loss's launches either way: the pair's three, the one-way six
+    loss_ms = {"pair": rows["infonce_fwd_pair"]["ms"]
+               + 2 * rows["infonce_bwd_pair"]["ms"],
+               "one_way": 2 * sum(rows[k]["ms"] for k in K.KERNELS)}
+    print(f"a loss's InfoNCE launches at n={n_main} f={f_main}: "
+          f"{json.dumps(loss_ms)}", flush=True)
+    del a, b, g, lse, lse1, lse2
 
     # the yardstick: one library call for the forward's function, at a
     # size where the n x n logits fit
@@ -439,7 +550,7 @@ def kernel_phase(n_main: int, f_main: int) -> dict:
             f"call {lib_ms} ms")
     del a, b
     torch.cuda.empty_cache()
-    for name in K.KERNELS:
+    for name in INFONCE:
         rows[name]["max_abs_err"] = errs[name]
         rows[name]["library_ms"] = lib_ms if name == "infonce_fwd" else None
         rows[name]["library_n"] = LIBRARY_N if name == "infonce_fwd" else None
@@ -616,6 +727,25 @@ def spmm_ppr_case(seed: int = 2**33 + 5) -> dict:
     del x, gy, rowptr, perm, col, wp
     torch.cuda.empty_cache()
     return res
+
+
+def check_pair_sass(sass: dict) -> None:
+    """The pair kernels wait behind their wgmma no more often than the
+    one-way kernels they stand for (WARPGROUP.DEPBAR; one behind every
+    HGMMA means ptxas serialised them)."""
+    def depbar(kernel: str) -> int:
+        found = [c["WARPGROUP.DEPBAR"] for name, c in sass.items()
+                 if kernel in name]
+        require(found, f"no machine code of {kernel}")
+        return max(found)
+
+    for pair, one_way in (("infonce_fwd_pair_wgmma_kernel",
+                           "infonce_fwd_wgmma_kernel"),
+                          ("infonce_bwd_pair_wgmma_kernel",
+                           "infonce_bwd_wgmma_kernel")):
+        require(depbar(pair) <= depbar(one_way),
+                f"{pair} holds {depbar(pair)} WARPGROUP.DEPBAR, "
+                f"{one_way} {depbar(one_way)}")
 
 
 def ptxas_usage(log: str, names) -> dict:
@@ -879,9 +1009,7 @@ def main_path(g, f: int) -> tuple:
             require(isolated == num_remove,
                     f"view removed {isolated} nodes, expected {num_remove}")
     launches = dict(K.launch_counts)
-    for name in K.KERNELS:
-        require(launches[name] == 2 * STEPS,
-                f"{name} launched {launches[name]} times in {STEPS} steps")
+    require_pair_launches(launches, STEPS, f"main path, {STEPS} steps")
     # 2 views x 2 GCN layers, forward and backward
     spmm_launches = dict(S.launch_counts)
     require(spmm_launches == {k: 4 * STEPS for k in S.KERNELS},
@@ -995,8 +1123,8 @@ def bench_phase(n: int, smi: str) -> dict:
     `rlap_throughput.run` (each call must remove n/2 nodes; its roofline
     held by `check_roofline`) and
     `epoch.run` at 3 timed epochs, with the InfoNCE counts set to 0 just
-    before and read just after; each kernel must run twice an epoch in
-    both variants, the first epoch included, and every view must remove
+    before and read just after; the pair's three launches an epoch in both
+    variants, the first epoch included, and every view must remove
     int(0.2 n) nodes. Prints both results; returns the launches of each
     variant and the single-device `eliminate`'s edges/s."""
     t = time.perf_counter()
@@ -1015,13 +1143,9 @@ def bench_phase(n: int, smi: str) -> dict:
     launches = dict(K.launch_counts)
     by_variant = {v: ep[f"infonce_launches_{v}"]
                   for v in ("separate", "paired")}
-    for name in K.KERNELS:
-        for v, counts in by_variant.items():
-            require(counts[name] == 2 * (BENCH_EPOCHS + 1),
-                    f"epoch bench {v}: {name} launched {counts[name]} times "
-                    f"in {BENCH_EPOCHS + 1} epochs")
-        require(launches[name] == sum(c[name] for c in by_variant.values()),
-                f"epoch bench: {name} launched {launches[name]} times")
+    for v, counts in by_variant.items():
+        require_pair_launches(counts, BENCH_EPOCHS + 1, f"epoch bench {v}")
+    require_pair_launches(launches, 2 * (BENCH_EPOCHS + 1), "epoch bench")
     require(ep["removed_per_view"] == int(FRAC * n)
             and ep["views_checked"] == 4 * (2 * BENCH_EPOCHS + 1),
             f"epoch bench views: {ep}")
@@ -1222,10 +1346,8 @@ def cli_phase() -> tuple:
         launches = dict(K.launch_counts)
         require(summary["grace"]["num_nodes"] == CLI_GRACE_N,
                 f"PUBMED stand-in has {summary['grace']['num_nodes']} nodes")
-        for name in K.KERNELS:
-            require(launches[name] == 2 * CLI_EPOCHS,
-                    f"{name} launched {launches[name]} times in the CLI's "
-                    f"{CLI_EPOCHS} GRACE epochs")
+        require_pair_launches(launches, CLI_EPOCHS,
+                              f"the CLI's {CLI_EPOCHS} GRACE epochs")
         summary["grace"]["infonce_launches"] = launches
 
         MVGRLTrainer.views, PPRDiffusion.augment = (recording_views,
@@ -1257,6 +1379,7 @@ def cli_phase() -> tuple:
     n, f = summary["grace"]["num_nodes"], 128
     a, b, _m, g = inputs(n, f, False, 11)
     _, lse = K.infonce_fwd_plain(a, b, 0.2)
+    _o1, lse1, _o2, lse2 = K.infonce_fwd_pair_plain(a, b, 0.2)
     summary["infonce_at_cli_shape"] = {
         "n": n, "f": f,
         "infonce_fwd_ms": cuda_ms(lambda: K.infonce_fwd(a, b, 0.2), 5),
@@ -1264,8 +1387,12 @@ def cli_phase() -> tuple:
             lambda: K.infonce_bwd_da(a, b, lse, g, 0.2), 5),
         "infonce_bwd_db_ms": cuda_ms(
             lambda: K.infonce_bwd_db(a, b, lse, g, 0.2), 5),
+        "infonce_fwd_pair_ms": cuda_ms(
+            lambda: K.infonce_fwd_pair(a, b, 0.2), 5),
+        "infonce_bwd_pair_ms": cuda_ms(
+            lambda: K.infonce_bwd_pair(a, b, lse1, g, lse2, g, 0.2), 5),
         **{f"{name}_bound_ms": bound(name, n, f)["bound_ms"]
-           for name in K.KERNELS}}
+           for name in INFONCE}}
     print(f"infonce at the CLI's shape: "
           f"{json.dumps(summary['infonce_at_cli_shape'])}", flush=True)
     return summary, launches
@@ -1402,8 +1529,8 @@ def sharded_phase(n: int, f: int, single_eps: float) -> tuple:
     spawned ranks (`launch`): the dry run (the distributed rLap at
     n=4096, then 3 GRACE steps through `eliminate_sharded` views at
     BA(n, m=8), f), whose ranks report their InfoNCE launches, set to 0
-    just before the steps and read just after (each kernel twice a step
-    on every rank), and whose losses and parameters must be equal on every
+    just before the steps and read just after (the pair's three a step on
+    every rank), and whose losses and parameters must be equal on every
     rank (`dryrun.summarise`); then the checks of `sharded_checks`. Prints
     each rank's step, views and rLap ms a view, and edges/s of the t = n/2
     call beside the single-device `eliminate`'s (`single_eps`, from the
@@ -1418,13 +1545,11 @@ def sharded_phase(n: int, f: int, single_eps: float) -> tuple:
         wall_s = time.perf_counter() - t
         dry = DR.summarise([r["dryrun"] for r in ranks], backend)
         checks = [r["checks"] for r in ranks]
-        counts = {name: 0 for name in K.KERNELS}
+        counts = {name: 0 for name in INFONCE}
         for rk in dry["ranks"]:
-            for name in K.KERNELS:
-                require(rk["infonce_launches"][name] == 2 * SHARDED_STEPS,
-                        f"{label} rank {rk['rank']}: {name} launched "
-                        f"{rk['infonce_launches'][name]} times in "
-                        f"{SHARDED_STEPS} steps")
+            require_pair_launches(rk["infonce_launches"], SHARDED_STEPS,
+                                  f"{label} rank {rk['rank']}")
+            for name in INFONCE:
                 counts[name] += rk["infonce_launches"][name]
             print(f"sharded dryrun {label} rank {rk['rank']}: step ms "
                   f"{rk['step_ms']}, views ms {rk['views_ms']}, rLap ms a "
@@ -1506,7 +1631,9 @@ def main(argv=None) -> int:
               for c in P.SLAB_SWEEP), flush=True)
     print("  dynamic shared memory a block at f <= 128: infonce_fwd (wgmma) "
           "197632 bytes (4 stages and 2 lo planes of 64 x 128 floats), "
-          "infonce_bwd_da and infonce_bwd_db (wgmma) 230400 bytes each (64 "
+          "infonce_fwd_pair 201728 (and 2 tiles' column sums of 8 warps), "
+          "infonce_bwd_da, infonce_bwd_db and infonce_bwd_pair (wgmma) "
+          "230400 bytes each (64 "
           "resident rows and their lo plane, 4 stages, 2 lo planes and 2 "
           "pairs of transposed planes of 32 x 128 floats); the mma.sync "
           "kernels of other widths 168960 bytes (128 resident rows and 3 "
@@ -1515,6 +1642,7 @@ def main(argv=None) -> int:
     for name, counts in sass.items():
         if counts["HGMMA"]:
             print(f"  sass: {name} {json.dumps(counts)}", flush=True)
+    check_pair_sass(sass)
 
     f = 128
     rows = kernel_phase(args.n, f)
@@ -1555,7 +1683,7 @@ def main(argv=None) -> int:
                     **{f"sharded_dryrun_{label}": counts[name]
                        for label, counts in sharded_launches.items()}},
                 "n": args.n, "f": f, "card": smi, **rows[name]}
-               for name in K.KERNELS]
+               for name in INFONCE]
     for name, row in probe["kernels"].items():
         kernels.append({
             "name": name, "route": "cuda",

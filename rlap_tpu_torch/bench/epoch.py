@@ -104,7 +104,7 @@ def run(n: int = 100_000, frac: float = 0.2, epochs: int = 3, device=None,
         res[f"epoch_ms_{label}"] = float(np.mean(each[1:]))
         res[f"epochs_ms_{label}"] = each[1:]
         res[f"infonce_launches_{label}"] = {
-            k: K.launch_counts[k] - before[k] for k in K.KERNELS}
+            k: K.launch_counts[k] - before[k] for k in K.launch_counts}
         log(f"{label}: first epoch {each[0]:.1f} ms, then {each[1:]} ms")
 
     def time_views(make_views, label: str) -> None:

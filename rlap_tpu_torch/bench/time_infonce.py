@@ -1,13 +1,16 @@
-"""Check and time the three InfoNCE kernels on the card:
+"""Check and time the InfoNCE kernels on the card:
 
     python -m rlap_tpu_torch.bench.time_infonce [n ...] [--f F] [--tau TAU]
 
 For each n (default 20000 100000) it holds every kernel against its plain
 version on unit rows made from a seed (values rtol 1e-5 / atol 1e-5,
 gradients rtol 1e-4 / atol 1e-6), then times each with CUDA events (one
-warm-up, three launches), and prints one JSON line. It is the quick loop
-for work on `rlap_tpu_torch/csrc/infonce.cu`; `chip_smoke.py` is the full
-check."""
+warm-up, three launches), and prints one JSON line. Where the width takes
+the pair kernels (`takes_pair`), the line also holds the pair forward and
+one pair gradient launch, and both directions of the dual-branch loss
+each way: `pair_ms` (one forward, two gradients) beside `one_way_ms` (two
+forwards, two dA, two dB). It is the quick loop for work on
+`rlap_tpu_torch/csrc/infonce.cu`; `chip_smoke.py` is the full check."""
 
 from __future__ import annotations
 
@@ -53,7 +56,39 @@ def run(n: int, f: int, tau: float) -> dict:
                                    rtol=1e-4, atol=1e-6)
         row[name + "_ms"] = cuda_ms(lambda: kern(a, b, lse_p, g, tau))
     row["infonce_fwd_ms"] = cuda_ms(lambda: K.infonce_fwd(a, b, tau))
+    if K.takes_pair(a, b):
+        row.update(time_pair(a, b, g, tau))
+        row["one_way_ms"] = 2 * sum(row[k + "_ms"] for k in K.KERNELS)
     return row
+
+
+def time_pair(a, b, g, tau: float) -> dict:
+    """The pair kernels against their plain versions, then timed: the
+    forward, one gradient launch and a loss's three launches."""
+    got = K.infonce_fwd_pair(a, b, tau)
+    plain = K.infonce_fwd_pair_plain(a, b, tau)
+    for x, p in zip(got, plain):
+        torch.testing.assert_close(x, p, rtol=1e-5, atol=1e-5)
+    _o1, lse1, _o2, lse2 = plain
+    g2 = torch.roll(g, 1)
+    for p, q, own, rest in ((a, b, (lse1, g), (lse2, g2)),
+                            (b, a, (lse2, g2), (lse1, g))):
+        torch.testing.assert_close(
+            K.infonce_bwd_pair(p, q, *own, *rest, tau),
+            K.infonce_bwd_pair_plain(p, q, *own, *rest, tau),
+            rtol=1e-4, atol=1e-6)
+    del got, plain
+
+    def loss():
+        K.infonce_fwd_pair(a, b, tau)
+        K.infonce_bwd_pair(a, b, lse1, g, lse2, g2, tau)
+        K.infonce_bwd_pair(b, a, lse2, g2, lse1, g, tau)
+
+    return {"infonce_fwd_pair_ms": cuda_ms(
+                lambda: K.infonce_fwd_pair(a, b, tau)),
+            "infonce_bwd_pair_ms": cuda_ms(
+                lambda: K.infonce_bwd_pair(a, b, lse1, g, lse2, g2, tau)),
+            "pair_ms": cuda_ms(loss)}
 
 
 def main(argv=None) -> int:

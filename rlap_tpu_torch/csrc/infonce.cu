@@ -9,6 +9,13 @@
 //       <- _bwd_da_kernel  (:86-101,  launched :176-190)
 //   infonce_bwd_wgmma_kernel<true>, infonce_bwd_kernel<WARPS, true>
 //       <- _bwd_db_kernel  (:104-121, launched :192-206)
+// and, for both directions of the dual-branch loss at once (f <= 128,
+// f % 4 == 0, 16-byte aligned rows), where the JAX package runs the three
+// twice:
+//   infonce_fwd_pair_wgmma_kernel + infonce_fwd_pair_merge_kernel
+//       <- _fwd_kernel twice
+//   infonce_bwd_pair_wgmma_kernel, launched twice
+//       <- _bwd_da_kernel and _bwd_db_kernel, twice each
 //
 // A and B are L2-normalised float32 [n, f] row-major. With
 // sim_ij = A_i . B_j / tau:
@@ -17,6 +24,17 @@
 //     dA_i = sum_j coef_ij B_j,   dB_j = sum_i coef_ij A_i
 // The n x n similarity matrix never reaches device memory: each tile is
 // recomputed from A and B where it is needed (the flash recompute).
+//
+// The pair. The dual-branch loss 0.5 (l(A, B) + l(B, A)) takes its second
+// direction on B A^T / tau, the transpose of the first's sim. So one pass
+// over sim gives both directions' values: lse1 its row logsumexps, lse2
+// its column ones, out1_i = sim_ii - lse1_i and out2_j = sim_jj - lse2_j.
+// And the gradient of the pair through sim is one coefficient matrix,
+//   G_ij = (g1_i / tau) (1[i == j] - exp(sim_ij - lse1_i))
+//        + (g2_j / tau) (1[i == j] - exp(sim_ij - lse2_j)),
+// with dA = G B and dB = G^T A: one launch that owns rows of A and streams
+// B, one that owns rows of B and streams A. Each recomputes sim once, as a
+// one-way launch does, where the two directions one way take four.
 //
 // What bounds them on the H100: operations. The forward does 2 n^2 f
 // useful FLOPs and each backward kernel 4 n^2 f, while the bytes are
@@ -66,12 +84,35 @@
 // with max, sum and positive in registers; the four lanes of a quad are
 // merged by shuffles once, after the last tile.
 //
+// ---- infonce_fwd_pair_wgmma_kernel: both directions' forward
+//
+// The forward's tiles, ring and products. The epilogue makes
+// e_ij = exp(sim_ij - 1/tau) once and sums it along rows (lse1) and along
+// columns (lse2). A fixed shift takes the place of the running max: unit
+// rows give |sim_ij| <= 1/tau, so e_ij <= 1, and e_ij >= exp(-2/tau) stays
+// a normal float32 for tau >= 0.025 (the caller takes two one-way forwards
+// below that). The row sums stay in registers as above. A column's sum
+// crosses the blocks, so each block writes its own: the lanes that share
+// a column (the eight g of one t) add their sums with a butterfly of 14
+// shuffles, the eight warps' partials go through shared memory, and the
+// block's sum of each column over its 128 rows goes to its row of a
+// [blocks, n] workspace. infonce_fwd_pair_merge_kernel then adds each
+// column's partials in float64, in block order. No atomics: the pair is
+// deterministic, as the one-way kernels are.
+//
 // ---- infonce_bwd_wgmma_kernel<DB>: dA (DB false) and dB (DB true) at
 // ---- f <= 128, f % 4 == 0
 //
 // Both products on wgmma, by a warpgroup that issues them and one that
 // feeds it; its own note, at the kernel, says how. What is summed is the
 // same as in the mma.sync kernel below.
+//
+// ---- infonce_bwd_pair_wgmma_kernel: G P_rows at f <= 128, f % 4 == 0
+//
+// dB's kernel with both anchors' terms in its coefficients: the owned
+// rows' (lse and g in registers, as dA) and the streamed rows' (read a
+// tile ahead, as dB). Launched as (P, Q) = (A, B) with (lse1, g1 | lse2,
+// g2) it gives dA, as (B, A) with (lse2, g2 | lse1, g1) dB.
 //
 // ---- infonce_fwd_kernel and infonce_bwd_kernel<WARPS, DB>: the forward,
 // ---- dA and dB at other widths, mma.sync
@@ -157,7 +198,10 @@
 //     is dB_j - r c_j, and the kernel adds r c_j back at the end. c_j is
 //     summed in float32 within a tile and in float64 across tiles: a
 //     float32 running total of c_j loses more at n = 20000 than the shift
-//     saves.
+//     saves. The pair: the streamed rows' terms do not sum to 0 along a
+//     row, as in dB, so both of its launches add r c back, c summed over
+//     those terms alone; the owned rows' terms sum to 0, as in dA, and
+//     what their sum is off by rounding stays out of c and of the result.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -561,6 +605,120 @@ constexpr int WG_RING = 4;        // stages of B tiles
 constexpr int PANEL = TN * 32;    // floats in a panel: 64 rows x 32 features
 constexpr int WG_STAGE = 4 * PANEL;
 constexpr int WG_SMEM = sizeof(float) * (WG_RING + 2) * WG_STAGE + 1024;
+constexpr int WG_ROWS = 128;      // rows of A a block owns
+constexpr int WG_WARPS = WG_THREADS / 32;
+// the pair adds two tiles' column sums of each warp
+constexpr int WG_PAIR_SMEM = WG_SMEM + sizeof(float) * 2 * WG_WARPS * TN;
+
+// The pair forward's sums for rows row0 + g and row0 + g + 8 of a warp, as
+// one lane sees them (columns 2 t, 2 t + 1 of each 8): the row sums of
+// e = exp(sim - 1/tau) and the positive in natural units; the four lanes
+// of a quad are merged in `store`. `add_tile` also leaves the warp's
+// column sums of the tile, over its 16 rows, in shared memory.
+struct PairSums {
+  float sum[2] = {0.f, 0.f}, pos[2] = {0.f, 0.f};
+
+  // s[j][e]: row row0 + g + 8 (e / 2), column c0 + 8 j + 2 t + e % 2;
+  // cols: the warp's TN column sums of this tile.
+  __device__ __forceinline__ void add_tile(float (&s)[8][4], int c0, int row0,
+                                           int g, int t, int n, float inv_tau,
+                                           float* cols) {
+    if (c0 < row0 + 16 && c0 + TN > row0) {  // the diagonal crosses
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * j + 2 * t + (e & 1) == row0 + g + 8 * (e >> 1))
+            pos[e >> 1] += s[j][e] * inv_tau;
+    }
+    // 2^((s - 1) log2(e) / tau) = exp(sim - 1/tau)
+    const float scale2 = inv_tau * LOG2E;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = exp2f(fmaf(s[j][e], scale2, -scale2));
+    if (c0 + TN > n || row0 + 16 > n) {  // the ragged last tile or rows
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * j + 2 * t + (e & 1) >= n ||
+              row0 + g + 8 * (e >> 1) >= n)
+            s[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part += s[j][2 * h] + s[j][2 * h + 1];
+      sum[h] += part;
+    }
+    // column 8 j + 2 t + u is v[2 j + u] in each of the eight lanes of one
+    // t; halve the columns at each of three exchanges (lane bits 4, 3, 2
+    // are g's bits 2, 1, 0), which leaves columns 8 g + 2 t + u in v[u]
+    float v[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) v[2 * j + u] = s[j][u] + s[j][2 + u];
+    fold<8>(v, g & 4, 16);
+    fold<4>(v, g & 2, 8);
+    fold<2>(v, g & 1, 4);
+    *reinterpret_cast<float2*>(cols + 8 * g + 2 * t) = make_float2(v[0], v[1]);
+  }
+
+  // v[i] += the partner's v[i] (lane ^ lanes) for the half of v[0, 2 HALF)
+  // this lane keeps (the upper when `up`), moved to v[0, HALF)
+  template <int HALF>
+  static __device__ __forceinline__ void fold(float (&v)[16], bool up,
+                                              int lanes) {
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float send = up ? v[i] : v[i + HALF];
+      const float keep = up ? v[i + HALF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, lanes);
+    }
+  }
+
+  // lse1, out1 and the diagonal sim_ii of the lane's rows
+  __device__ __forceinline__ void store(float* __restrict__ out,
+                                        float* __restrict__ lse,
+                                        float* __restrict__ diag, int row0,
+                                        int g, int t, int n,
+                                        float inv_tau) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s_all = sum[h];
+      s_all += __shfl_xor_sync(0xffffffffu, s_all, 1);
+      s_all += __shfl_xor_sync(0xffffffffu, s_all, 2);
+      float p = pos[h];
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      const int row = row0 + g + 8 * h;
+      if (t == 0 && row < n) {
+        const float l = inv_tau + logf(s_all);
+        lse[row] = l;
+        out[row] = p - l;
+        diag[row] = p;
+      }
+    }
+  }
+};
+
+// A tile's column sums over the block's rows, from the warps' partials
+// `cols` added in warp order, to the block's row of the workspace ws.
+__device__ __forceinline__ void store_cols(const float* cols,
+                                           float* __restrict__ ws, int c0,
+                                           int n) {
+  const int c = threadIdx.x;
+  if (c < TN && c0 + c < n) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WG_WARPS; ++w) s += cols[w * TN + c];
+    ws[(int64_t)blockIdx.x * n + c0 + c] = s;
+  }
+}
 
 // Where features 4 c .. 4 c + 3 (c < 32) of row `row` of a tile lie in a
 // stage, in floats: panels of 32 features, rows of 128 bytes in a panel,
@@ -707,19 +865,26 @@ __device__ __forceinline__ void load_stage_swizzled(float* stage,
 // threads then write its lo plane. While the tensor cores multiply tile j
 // (48 wgmma at f = 128: three terms for each of 16 blocks of 8 features),
 // the threads split tile j + 1 and start the copy of tile j + 3. One
-// __syncthreads per tile.
-__global__ void __launch_bounds__(WG_THREADS, 1)
-infonce_fwd_wgmma_kernel(const float* __restrict__ A,
-                         const float* __restrict__ B, float* __restrict__ out,
-                         float* __restrict__ lse, int n, int f,
-                         float inv_tau) {
+// __syncthreads per tile. PAIR: the epilogue is `PairSums`, and while the
+// tensor cores take tile j the first 64 threads add tile j - 1's column
+// sums over the warps and store them to the block's row of ws (cols holds
+// two tiles' sums, so that tile j's can be written meanwhile).
+template <bool PAIR>
+__device__ __forceinline__ void fwd_wgmma(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          float* __restrict__ out,
+                                          float* __restrict__ lse,
+                                          float* __restrict__ diag,
+                                          float* __restrict__ ws, int n,
+                                          int f, float inv_tau) {
   extern __shared__ float smem_raw[];
   float* ring = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   float* lo = ring + WG_RING * WG_STAGE;  // two lo planes
+  float* cols = lo + 2 * WG_STAGE;        // PAIR: [2][WG_WARPS][TN]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = blockIdx.x * 128 + 16 * warp;  // the warp's rows
+  const int row0 = blockIdx.x * WG_ROWS + 16 * warp;  // the warp's rows
   const int nk = (f + 7) / 8;                     // blocks of 8 features
   const int chunks = 2 * nk;                      // 16-byte chunks of a row
   const int ntiles = (n + TN - 1) / TN;
@@ -763,6 +928,7 @@ infonce_fwd_wgmma_kernel(const float* __restrict__ A,
   split_tile(0);
 
   RowSoftmax rows;
+  PairSums sums;
   float d[8][4] = {};
   for (int tile = 0; tile < ntiles; ++tile) {
     cp_async_wait<WG_RING - 3>();  // this thread's copies of tile + 1
@@ -785,15 +951,71 @@ infonce_fwd_wgmma_kernel(const float* __restrict__ A,
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     load_tile(tile + WG_RING - 1);  // into the stage of tile - 1
     if (tile + 1 < ntiles) split_tile(tile + 1);
+    if constexpr (PAIR)
+      if (tile > 0)
+        store_cols(cols + ((tile - 1) % 2) * WG_WARPS * TN, ws,
+                   (tile - 1) * TN, n);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-    rows.add_tile(d, tile * TN, row0, g, t, n, inv_tau);
+    if constexpr (PAIR)
+      sums.add_tile(d, tile * TN, row0, g, t, n, inv_tau,
+                    cols + ((tile % 2) * WG_WARPS + warp) * TN);
+    else
+      rows.add_tile(d, tile * TN, row0, g, t, n, inv_tau);
   }
   cp_async_wait<0>();
-  rows.store(out, lse, row0, g, t, n);
+  if constexpr (PAIR) {
+    __syncthreads();  // the last tile's column sums
+    store_cols(cols + ((ntiles - 1) % 2) * WG_WARPS * TN, ws,
+               (ntiles - 1) * TN, n);
+    sums.store(out, lse, diag, row0, g, t, n, inv_tau);
+  } else {
+    rows.store(out, lse, row0, g, t, n);
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+infonce_fwd_wgmma_kernel(const float* __restrict__ A,
+                         const float* __restrict__ B, float* __restrict__ out,
+                         float* __restrict__ lse, int n, int f,
+                         float inv_tau) {
+  fwd_wgmma<false>(A, B, out, lse, nullptr, nullptr, n, f, inv_tau);
+}
+
+// Both directions' forward: out1 and lse1 of A's rows, the diagonal, and
+// the block's column sums of exp(sim - 1/tau) in row b of ws [blocks, n].
+__global__ void __launch_bounds__(WG_THREADS, 1)
+infonce_fwd_pair_wgmma_kernel(const float* __restrict__ A,
+                              const float* __restrict__ B,
+                              float* __restrict__ out1,
+                              float* __restrict__ lse1,
+                              float* __restrict__ diag,
+                              float* __restrict__ ws, int n, int f,
+                              float inv_tau) {
+  fwd_wgmma<true>(A, B, out1, lse1, diag, ws, n, f, inv_tau);
+}
+
+// lse2_j = 1/tau + log(the column sums of ws, added in float64 in block
+// order) and out2_j = diag_j - lse2_j: a thread a column, a warp's loads
+// of one block row contiguous.
+__global__ void infonce_fwd_pair_merge_kernel(const float* __restrict__ ws,
+                                              const float* __restrict__ diag,
+                                              float* __restrict__ out2,
+                                              float* __restrict__ lse2,
+                                              int blocks, int n,
+                                              float inv_tau) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const float* col = ws + j;
+  double s = 0.0;
+#pragma unroll 8
+  for (int b = 0; b < blocks; ++b) s += (double)col[(int64_t)b * n];
+  const float l = static_cast<float>((double)inv_tau + log(s));
+  lse2[j] = l;
+  out2[j] = diag[j] - l;
 }
 
 // ---------------------------------------------------------------------------
@@ -819,11 +1041,13 @@ __device__ __forceinline__ void dot_ref(const float* __restrict__ P,
 }
 
 // lse_i in base 2 and g_i / tau of the anchors i of a lane's
-// coefficients, 0 past n. dA: the lane's two rows, read once. dB: the
-// tile's columns c0 + 8 j + 2 t + u, 2 J of them, read per tile.
-template <int J, bool DB>
+// coefficients, 0 past n. The block's rows (COLS false: dA's, and the
+// pair's owned side): the lane's two rows, read once. The tile's columns
+// (COLS true: dB's, and the pair's streamed side): columns
+// c0 + 8 j + 2 t + u, 2 J of them, read per tile.
+template <int J, bool COLS>
 struct Anchors {
-  float lse2[DB ? J : 1][2], gs[DB ? J : 1][2];
+  float lse2[COLS ? J : 1][2], gs[COLS ? J : 1][2];
 
   __device__ __forceinline__ void read(const float* __restrict__ lse,
                                        const float* __restrict__ gout, int i,
@@ -848,57 +1072,80 @@ struct Anchors {
   }
   // of the coefficient in row g + 8 (e / 2), column 8 j + 2 t + e % 2
   __device__ __forceinline__ float l2(int j, int e) const {
-    return lse2[DB ? j : 0][DB ? (e & 1) : (e >> 1)];
+    return lse2[COLS ? j : 0][COLS ? (e & 1) : (e >> 1)];
   }
   __device__ __forceinline__ float gt(int j, int e) const {
-    return gs[DB ? j : 0][DB ? (e & 1) : (e >> 1)];
+    return gs[COLS ? j : 0][COLS ? (e & 1) : (e >> 1)];
   }
 };
+
+// What a gradient kernel makes: dA (the rows' anchors' terms), dB (the
+// columns') or the pair's G P (both).
+enum Grad { GRAD_DA, GRAD_DB, GRAD_PAIR };
 
 // A tile's coefficients, in place of its shifted similarities: s[j][e] is
 // row row0 + g + 8 (e / 2) of P, column c0 + 8 j + 2 t + e % 2 of the tile
 // (8 J columns), and P_row . r = thi + tlo is added back first (see "what
-// is summed"). dB also adds the lane's coefficients of each of its rows to
-// csum: float32 within the tile, float64 across tiles.
-template <int J, bool DB>
+// is summed"). The terms of the rows' anchors `own` (dA, the pair) and of
+// the columns' `str` (dB, the pair); the lane adds the columns' terms of
+// each of its rows to csum: float32 within the tile, float64 across tiles.
+template <int J, int MODE>
 __device__ __forceinline__ void tile_coef(float (&s)[J][4],
-                                          const Anchors<J, DB>& an,
+                                          const Anchors<J, false>& own,
+                                          const Anchors<J, true>& str,
                                           const float (&thi)[2],
                                           const float (&tlo)[2], int c0,
                                           int row0, int g, int t, int n,
                                           float scale2, double (&csum)[2]) {
+  constexpr bool ROWS = MODE != GRAD_DB, COLS = MODE != GRAD_DA;
+  float part[2] = {0.f, 0.f};  // the pair: its columns' terms of each row
 #pragma unroll
   for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = (s[j][e] + tlo[e >> 1]) + thi[e >> 1];
-      s[j][e] = -exp2f(fmaf(x, scale2, -an.l2(j, e))) * an.gt(j, e);
+      if constexpr (MODE == GRAD_PAIR) {
+        const float c = exp2f(fmaf(x, scale2, -str.l2(j, e))) * str.gt(j, e);
+        part[e >> 1] -= c;
+        s[j][e] = -fmaf(exp2f(fmaf(x, scale2, -own.l2(j, e))), own.gt(j, e),
+                        c);
+      } else if constexpr (ROWS) {
+        s[j][e] = -exp2f(fmaf(x, scale2, -own.l2(j, e))) * own.gt(j, e);
+      } else {
+        s[j][e] = -exp2f(fmaf(x, scale2, -str.l2(j, e))) * str.gt(j, e);
+      }
     }
   if (c0 < row0 + 16 && c0 + 8 * J > row0) {  // the diagonal crosses
 #pragma unroll
     for (int j = 0; j < J; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (c0 + 8 * j + 2 * t + (e & 1) == row0 + g + 8 * (e >> 1))
-          s[j][e] += an.gt(j, e);
+        if (c0 + 8 * j + 2 * t + (e & 1) == row0 + g + 8 * (e >> 1)) {
+          if constexpr (ROWS) s[j][e] += own.gt(j, e);
+          if constexpr (COLS) s[j][e] += str.gt(j, e);
+          if constexpr (MODE == GRAD_PAIR) part[e >> 1] += str.gt(j, e);
+        }
   }
-  // rows past n have g = 0 in dA and are not written in dB; dB's columns
-  // past n have g = 0, dA's are set to 0 here
-  if (!DB && c0 + 8 * J > n) {
+  // rows past n have g = 0 in the rows' terms and are not written; the
+  // columns' terms have g = 0 in columns past n, and the rows' terms are
+  // set to 0 there
+  if (ROWS && c0 + 8 * J > n) {
 #pragma unroll
     for (int j = 0; j < J; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (c0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = 0.f;
   }
-  if (DB) {
+  if constexpr (MODE == GRAD_DB) {  // every term is a column's
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float part = 0.f;
 #pragma unroll
-      for (int j = 0; j < J; ++j) part += s[j][2 * h] + s[j][2 * h + 1];
-      csum[h] += part;
+      for (int j = 0; j < J; ++j) part[h] += s[j][2 * h] + s[j][2 * h + 1];
     }
+  }
+  if constexpr (COLS) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) csum[h] += part[h];
   }
 }
 
@@ -931,8 +1178,9 @@ infonce_bwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const float scale2 = inv_tau * LOG2E;
   const float* __restrict__ rq = Q + (int64_t)r0 * f;
 
-  Anchors<8, DB> an;
-  if constexpr (!DB) an.rows(lse, gout, row0 + g, n, inv_tau);
+  Anchors<8, false> own;  // dA's
+  Anchors<8, true> str;   // dB's
+  if constexpr (!DB) own.rows(lse, gout, row0 + g, n, inv_tau);
   float thi[2], tlo[2];  // P_row . r of rows row0 + g and row0 + g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -955,8 +1203,9 @@ infonce_bwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for_each_tile<WARPS, true>(
       P, Q, n, f, vec, chunk, smem,
       [&](float (&s)[8][4], int c0, const float* stage) {
-        if constexpr (DB) an.cols(lse, gout, c0, t, n, inv_tau);
-        tile_coef<8, DB>(s, an, thi, tlo, c0, row0, g, t, n, scale2, csum);
+        if constexpr (DB) str.cols(lse, gout, c0, t, n, inv_tau);
+        tile_coef<8, DB ? GRAD_DB : GRAD_DA>(s, own, str, thi, tlo, c0, row0,
+                                             g, t, n, scale2, csum);
         coef_mma(acc, s, stage, ref, kfo, g, t);
       });
 
@@ -1032,10 +1281,10 @@ __device__ __forceinline__ int swizzled_in(int panel, int row, int c) {
 // place, and go back in as the A operand of the second product (k = t,
 // t + 4): V^T is written with its columns in that order, and nothing
 // moves. The second product starts from zero for every tile and is added
-// to the running total with a float32 add (the two-level sum). dB reads
-// lse_i and g_i of a tile's columns one tile ahead (in flight under the
-// second product and the next similarity product), keeps c_j, and adds
-// r c_j in the epilogue.
+// to the running total with a float32 add (the two-level sum). dB and the
+// pair read lse_i and g_i of a tile's columns one tile ahead (in flight
+// under the second product and the next similarity product), keep c_j,
+// and add r c_j in the epilogue.
 //
 // Per tile j, after one barrier of all 256 threads: the consumer runs the
 // similarities of tile j on the tensor cores, adds tile j - 1's product to
@@ -1045,17 +1294,20 @@ __device__ __forceinline__ int swizzled_in(int panel, int row, int c) {
 // asynchronous (it puts a wait behind every one otherwise, silently or
 // with remark C7518): no group left open across the loop's back edge, and
 // a role test that it can see is uniform in a warp.
-template <bool DB>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-infonce_bwd_wgmma_kernel(const float* __restrict__ A,
-                         const float* __restrict__ B,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ gout,
-                         float* __restrict__ grad, int n, int f,
-                         float inv_tau) {
+//
+// (lse_own, g_own) are the anchors of P's rows (dA, the pair), (lse_str,
+// g_str) those of Q's rows (dB, the pair).
+template <int MODE>
+__device__ __forceinline__ void bwd_wgmma(const float* __restrict__ P,
+                                          const float* __restrict__ Q,
+                                          const float* __restrict__ lse_own,
+                                          const float* __restrict__ g_own,
+                                          const float* __restrict__ lse_str,
+                                          const float* __restrict__ g_str,
+                                          float* __restrict__ grad, int n,
+                                          int f, float inv_tau) {
+  constexpr bool ROWS = MODE != GRAD_DB, COLS = MODE != GRAD_DA;
   extern __shared__ float smem_raw[];
-  const float* __restrict__ P = DB ? B : A;
-  const float* __restrict__ Q = DB ? A : B;
   float* p_hi = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   float* p_lo = p_hi + 4 * BWD_PPANEL;
@@ -1171,11 +1423,11 @@ infonce_bwd_wgmma_kernel(const float* __restrict__ A,
     return;
   }
 
-  Anchors<4, DB> an;
-  if constexpr (DB)
-    an.cols(lse, gout, 0, t, n, inv_tau);  // then a tile ahead
-  else
-    an.rows(lse, gout, row0 + g, n, inv_tau);
+  Anchors<4, false> own;
+  Anchors<4, true> str;
+  if constexpr (ROWS) own.rows(lse_own, g_own, row0 + g, n, inv_tau);
+  if constexpr (COLS)
+    str.cols(lse_str, g_str, 0, t, n, inv_tau);  // then a tile ahead
   float thi[2], tlo[2];  // P_row . r of rows row0 + g and row0 + g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -1216,10 +1468,11 @@ infonce_bwd_wgmma_kernel(const float* __restrict__ A,
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(s[j][e])::"memory");
 
-    tile_coef<4, DB>(s, an, thi, tlo, c0, row0, g, t, n, scale2, csum);
+    tile_coef<4, MODE>(s, own, str, thi, tlo, c0, row0, g, t, n, scale2,
+                       csum);
     // the next tile's anchors, in flight under the second product and the
     // next similarity product
-    if constexpr (DB) an.cols(lse, gout, c0 + BWD_TN, t, n, inv_tau);
+    if constexpr (COLS) str.cols(lse_str, g_str, c0 + BWD_TN, t, n, inv_tau);
     const float* vh = vt + (tile % 2) * 2 * BWD_STAGE;
     const float* vl = vh + BWD_STAGE;
     // the A operand of the second product, every k-step in registers of
@@ -1262,7 +1515,7 @@ infonce_bwd_wgmma_kernel(const float* __restrict__ A,
   for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-  if (DB) quad_sum(csum);
+  if (COLS) quad_sum(csum);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
@@ -1272,13 +1525,45 @@ infonce_bwd_wgmma_kernel(const float* __restrict__ A,
       const int k = 8 * j + 2 * t;
       if (k >= f) continue;
       float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-      if (DB) {  // dB_j = the sum + r c_j
+      if (COLS) {  // the sum + r c_j
         v.x = static_cast<float>(v.x + (double)rq[k] * csum[h]);
         v.y = static_cast<float>(v.y + (double)rq[k + 1] * csum[h]);
       }
       *reinterpret_cast<float2*>(grad + (int64_t)row * f + k) = v;
     }
   }
+}
+
+template <bool DB>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+infonce_bwd_wgmma_kernel(const float* __restrict__ A,
+                         const float* __restrict__ B,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ gout,
+                         float* __restrict__ grad, int n, int f,
+                         float inv_tau) {
+  if constexpr (DB)
+    bwd_wgmma<GRAD_DB>(B, A, nullptr, nullptr, lse, gout, grad, n, f,
+                       inv_tau);
+  else
+    bwd_wgmma<GRAD_DA>(A, B, lse, gout, nullptr, nullptr, grad, n, f,
+                       inv_tau);
+}
+
+// G P of the pair for the rows of P: dA with (P, Q) = (A, B), (lse_own,
+// g_own) = (lse1, g1) and (lse_str, g_str) = (lse2, g2); dB with both
+// pairs swapped.
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+infonce_bwd_pair_wgmma_kernel(const float* __restrict__ P,
+                              const float* __restrict__ Q,
+                              const float* __restrict__ lse_own,
+                              const float* __restrict__ g_own,
+                              const float* __restrict__ lse_str,
+                              const float* __restrict__ g_str,
+                              float* __restrict__ grad, int n, int f,
+                              float inv_tau) {
+  bwd_wgmma<GRAD_PAIR>(P, Q, lse_own, g_own, lse_str, g_str, grad, n, f,
+                       inv_tau);
 }
 
 // Rows a block owns, as warps of 16, for nch feature chunks: the most
@@ -1293,6 +1578,11 @@ size_t smem_bytes(int warps, int nch) {
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The widths and pointers the wgmma kernels take, and so the pair's.
+bool wgmma_fits(int f, const void* a, const void* b) {
+  return f <= KC && f % 4 == 0 && aligned16(a) && aligned16(b);
 }
 
 template <int WARPS>
@@ -1403,6 +1693,53 @@ int infonce_bwd_db(const void* a, const void* b, const void* lse,
                    const void* g, void* db, int n, int f, float inv_tau,
                    void* stream) {
   return launch_grad<true>(a, b, lse, g, db, n, f, inv_tau, stream);
+}
+
+// Both directions' forward: out1, lse1 (rows of sim), out2, lse2 (its
+// columns); diag [n] and ws [ceil(n / 128), n] are the caller's scratch.
+// The pair runs only where the wgmma kernels do: else cudaErrorInvalidValue.
+int infonce_fwd_pair(const void* a, const void* b, void* out1, void* lse1,
+                     void* out2, void* lse2, void* diag, void* ws, int n,
+                     int f, float inv_tau, void* stream) {
+  if (n <= 0) return 0;
+  if (!wgmma_fits(f, a, b)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaFuncSetAttribute(
+      infonce_fwd_pair_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, WG_PAIR_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + WG_ROWS - 1) / WG_ROWS;
+  infonce_fwd_pair_wgmma_kernel<<<blocks, WG_THREADS, WG_PAIR_SMEM, st>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(out1), static_cast<float*>(lse1),
+      static_cast<float*>(diag), static_cast<float*>(ws), n, f, inv_tau);
+  infonce_fwd_pair_merge_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(diag),
+      static_cast<float*>(out2), static_cast<float*>(lse2), blocks, n,
+      inv_tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// G P of the pair for the rows of P (see the kernel); the same rule.
+int infonce_bwd_pair(const void* p, const void* q, const void* lse_own,
+                     const void* g_own, const void* lse_str,
+                     const void* g_str, void* grad, int n, int f,
+                     float inv_tau, void* stream) {
+  if (n <= 0 || f <= 0) return 0;
+  if (!wgmma_fits(f, p, q) || !aligned16(grad))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      infonce_bwd_pair_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  infonce_bwd_pair_wgmma_kernel<<<(n + BWD_ROWS - 1) / BWD_ROWS, BWD_THREADS,
+                                  BWD_SMEM,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(q),
+      static_cast<const float*>(lse_own), static_cast<const float*>(g_own),
+      static_cast<const float*>(lse_str), static_cast<const float*>(g_str),
+      static_cast<float*>(grad), n, f, inv_tau);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from rlap_tpu_torch.ops.infonce_fused import (infonce_fused,
+from rlap_tpu_torch.ops.infonce_fused import (infonce_fused_pair,
                                               infonce_fused_plain, l2norm)
 
 _LOSSES = ("infonce", "infonce_batched", "infonce_fused", "auto", "jsd",
@@ -107,7 +107,8 @@ class DualBranchContrast:
     "infonce_fused", and "auto", which takes the fused kernels for CUDA
     tensors and "infonce_batched" for CPU tensors) exist for L2L only.
     With those, `node_mask` masks the anchors, not the columns; the
-    mask-based losses mask both, as in the JAX package.
+    mask-based losses mask both, as in the JAX package. "infonce_fused"
+    takes both directions at once (`infonce_fused_pair`).
     """
 
     def __init__(self, loss: str = "infonce", mode: str = "L2L",
@@ -124,16 +125,19 @@ class DualBranchContrast:
         self.tau = tau
         self.block_size = block_size
 
-    def _identity(self, anchor, sample, node_mask):
+    def _identity(self, h1, h2, node_mask):
+        """0.5 (l(h1, h2) + l(h2, h1)) of an identity-positive loss."""
         name = self.loss_name
         if name == "auto":
-            name = "infonce_fused" if anchor.is_cuda else "infonce_batched"
+            name = "infonce_fused" if h1.is_cuda else "infonce_batched"
         if name == "infonce_fused":
-            return infonce_fused(anchor, sample, tau=self.tau,
-                                 anchor_mask=node_mask)
-        return infonce_batched(anchor, sample, tau=self.tau,
-                               block_size=self.block_size,
-                               anchor_mask=node_mask)
+            return infonce_fused_pair(h1, h2, tau=self.tau,
+                                      anchor_mask=node_mask)
+        l12, l21 = (infonce_batched(x, y, tau=self.tau,
+                                    block_size=self.block_size,
+                                    anchor_mask=node_mask)
+                    for x, y in ((h1, h2), (h2, h1)))
+        return 0.5 * (l12 + l21)
 
     def _one_way(self, anchor, sample, pos_mask, neg_mask, anchor_mask):
         if self.loss_name == "infonce":
@@ -148,8 +152,7 @@ class DualBranchContrast:
                  node_mask=None) -> torch.Tensor:
         if self.mode == "L2L":
             if self.loss_name in _IDENTITY_LOSSES:
-                return 0.5 * (self._identity(h1, h2, node_mask)
-                              + self._identity(h2, h1, node_mask))
+                return self._identity(h1, h2, node_mask)
             pos, neg = same_scale_masks(h1.shape[0], h1.dtype, h1.device)
             if node_mask is not None:
                 v = node_mask.to(h1.dtype)

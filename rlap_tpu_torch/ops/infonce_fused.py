@@ -20,6 +20,16 @@ the kernels. They keep a block's rows resident in shared memory, which
 bounds the width: f <= 1920, and a wider launch is refused with a CUDA
 error.
 
+The pair. The dual-branch loss 0.5 (l(a, b) + l(b, a)) takes its second
+direction on the transpose of the first's similarity matrix, so one
+forward (`infonce_fwd_pair`: row and column logsumexps of one pass) and
+two gradient launches (`infonce_bwd_pair`, once a side) make both
+directions, where the one-way kernels take two forwards and four
+gradients. `InfoNCEPair` wires them; `infonce_pair` takes it where the
+shape rule of the `wgmma` kernels allows (`takes_pair`), else two
+`InfoNCECore`, and `infonce_fused_pair` is the loss. Their launches count
+under `PAIR_KERNELS`, so that `KERNELS` keeps counting the one-way three.
+
 The library is built from the repository's source at first use and loaded
 with ctypes, by `rlap_tpu_torch/ops/_build.py`.
 """
@@ -35,16 +45,26 @@ import torch
 from rlap_tpu_torch.ops import _build
 from rlap_tpu_torch.ops._build import BUILD_DIR  # noqa: F401
 from rlap_tpu_torch.ops._build import on_cpu as _on_cpu
+from rlap_tpu_torch.utils import tracing
 
 _STEM = "infonce"
 SOURCE = _build.source_path(_STEM)
 KERNELS = ("infonce_fwd", "infonce_bwd_da", "infonce_bwd_db")
+PAIR_KERNELS = ("infonce_fwd_pair", "infonce_bwd_pair")
 
-launch_counts = {name: 0 for name in KERNELS}
+launch_counts = {name: 0 for name in KERNELS + PAIR_KERNELS}
+
+# rows of A a block of the pair forward owns: its workspace holds one row
+# of column sums for each block
+PAIR_FWD_ROWS = 128
+# The pair forward shifts every logit by 1/tau in place of a running max;
+# its smallest term, exp(-2/tau), is a normal float32 (e^-80 > 2^-126)
+# from this tau on. Below it the pair takes two one-way forwards.
+PAIR_FWD_MIN_TAU = 0.025
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
+    for name in launch_counts:
         launch_counts[name] = 0
 
 
@@ -64,7 +84,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("infonce_bwd_da", "infonce_bwd_db"):
         getattr(lib, name).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                        f32, ptr]
-    for name in KERNELS:
+    lib.infonce_fwd_pair.argtypes = [ptr] * 8 + [i32, i32, f32, ptr]
+    lib.infonce_bwd_pair.argtypes = [ptr] * 7 + [i32, i32, f32, ptr]
+    for name in KERNELS + PAIR_KERNELS:
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -113,11 +135,18 @@ def infonce_fwd_plain(a, b, tau: float, block: int = 1024,
     return torch.cat(outs), torch.cat(lses)
 
 
-def _coef_rows(a, b, lse, g, i0: int, block: int, tau: float):
-    sim = _sim_rows(a, b, i0, block, tau)
-    coef = -torch.exp(sim - lse[i0:i0 + block, None])
+def _coef(sim, lse, g, i0: int, tau: float):
+    """(g / tau) (1[i == j] - exp(sim - lse)) on rows i0.. of sim, with
+    lse and g shaped to broadcast: [rows, 1] for the rows' anchors, [n]
+    for the columns'."""
+    coef = -torch.exp(sim - lse)
     coef.diagonal(offset=i0).add_(1.0)
-    return coef * (g[i0:i0 + block, None] * (1.0 / tau))
+    return coef * (g * (1.0 / tau))
+
+
+def _coef_rows(a, b, lse, g, i0: int, block: int, tau: float):
+    return _coef(_sim_rows(a, b, i0, block, tau), lse[i0:i0 + block, None],
+                 g[i0:i0 + block, None], i0, tau)
 
 
 def infonce_bwd_da_plain(a, b, lse, g, tau: float, block: int = 1024):
@@ -132,6 +161,39 @@ def infonce_bwd_db_plain(a, b, lse, g, tau: float, block: int = 1024):
     for i0 in range(0, a.shape[0], block):
         db += _coef_rows(a, b, lse, g, i0, block, tau).T @ a[i0:i0 + block]
     return db
+
+
+def infonce_fwd_pair_plain(a, b, tau: float, block: int = 1024,
+                           matmul_t=_matmul_t):
+    """(out1, lse1, out2, lse2) of both directions from one row-blocked
+    pass over sim = a b^T / tau: lse1 its row logsumexps, lse2 its column
+    ones, out1 = diag - lse1 and out2 = diag - lse2."""
+    diags, lses, col = [], [], None
+    for i0 in range(0, a.shape[0], block):
+        sim = _sim_rows(a, b, i0, block, tau, matmul_t)
+        diags.append(sim.diagonal(offset=i0).clone())  # not a view of sim
+        lses.append(torch.logsumexp(sim, 1))
+        part = torch.logsumexp(sim, 0)
+        col = part if col is None else torch.logaddexp(col, part)
+    diag, lse1 = torch.cat(diags), torch.cat(lses)
+    return diag - lse1, lse1, diag - col, col
+
+
+def infonce_bwd_pair_plain(p, q, lse_own, g_own, lse_str, g_str,
+                           tau: float, block: int = 1024):
+    """The pair's gradient for the rows of p: sum_j G_ij q_j with
+    G_ij = (g_own_i / tau) (1[i == j] - exp(sim_ij - lse_own_i))
+         + (g_str_j / tau) (1[i == j] - exp(sim_ij - lse_str_j)),
+    sim = p q^T / tau. (p, q) = (a, b) with (lse1, g1 | lse2, g2) gives
+    dA of the pair, (b, a) with (lse2, g2 | lse1, g1) dB."""
+    out = []
+    for i0 in range(0, p.shape[0], block):
+        sim = _sim_rows(p, q, i0, block, tau)
+        coef = (_coef(sim, lse_own[i0:i0 + block, None],
+                      g_own[i0:i0 + block, None], i0, tau)
+                + _coef(sim, lse_str, g_str, i0, tau))
+        out.append(coef @ q)
+    return torch.cat(out)
 
 
 # ---------------------------------------------------------------------------
@@ -172,11 +234,34 @@ def infonce_fwd_3xtf32_plain(a, b, tau: float, block: int = 1024):
     return infonce_fwd_plain(a, b, tau, block, matmul_3xtf32)
 
 
-def _bwd_3xtf32_plain(p, q, lse, g, tau: float, block: int, tile: int,
-                      db: bool) -> torch.Tensor:
+def infonce_fwd_pair_3xtf32_plain(a, b, tau: float):
+    """The pair forward kernel's arithmetic: the 3xTF32 product, and sums
+    of e = exp(sim - 1/tau), a fixed shift in place of the running max,
+    along each row of a block of 128 rows in float32 and down each column
+    over the block in float32, the blocks' column sums added in float64.
+    lse = 1/tau + log(sum)."""
+    n = a.shape[0]
+    diags, rows = [], []
+    cols = torch.zeros(n, dtype=torch.float64, device=a.device)
+    for i0 in range(0, n, PAIR_FWD_ROWS):
+        s = matmul_3xtf32(a[i0:i0 + PAIR_FWD_ROWS], b)
+        diags.append(s.diagonal(offset=i0) * (1.0 / tau))
+        e = torch.exp((s - 1.0) * (1.0 / tau))
+        rows.append(e.sum(1))
+        cols += e.sum(0).double()
+    diag = torch.cat(diags)
+    lse1 = 1.0 / tau + torch.log(torch.cat(rows))
+    lse2 = (1.0 / tau + torch.log(cols)).to(a.dtype)
+    return diag - lse1, lse1, diag - lse2, lse2
+
+
+def _bwd_3xtf32_plain(p, q, own, streamed, tau: float, block: int,
+                      tile: int) -> torch.Tensor:
     """The gradient kernels' arithmetic. A block owns `block` rows of p (A
     for dA, B for dB) and streams the rows of q (B, A) in tiles of `tile`;
-    r is the row of q at the block's first own index.
+    r is the row of q at the block's first own index. `own` is (lse, g)
+    of the anchors that are p's rows (dA, the pair) or None, `streamed`
+    that of q's rows (dB, the pair) or None.
 
     - The similarity of a tile is taken against q - r, in 3xTF32, and
       t = p . r (float64, kept as float32 hi + lo) is added back to it:
@@ -190,7 +275,11 @@ def _bwd_3xtf32_plain(p, q, lse, g, tau: float, block: int, tile: int,
       the other index), so the total is dB_j - r c_j, and r c_j is added
       back. c_j is summed in float32 within a tile and in float64 across
       tiles: a float32 running total of c_j costs more than it saves at
-      n=20000 on alike rows."""
+      n=20000 on alike rows.
+    - The pair: the streamed anchors' terms do not sum to 0 either, so r
+      c_j is added back, c_j the sum of those terms alone. The owned
+      anchors' terms sum to 0, as dA's, so what their sum is off by
+      rounding stays out of c_j and out of the result."""
     n, f = p.shape
     nb, nt = -(-n // block), -(-n // tile)
     m = max(nb * block, nt * tile)
@@ -201,7 +290,10 @@ def _bwd_3xtf32_plain(p, q, lse, g, tau: float, block: int, tile: int,
         return out
 
     pb = padded(p)[:nb * block].view(nb, block, f)
-    qp, lse_p, g_p = padded(q), padded(lse), padded(g)
+    qp = padded(q)
+    anchors = [(padded(pair[0]), padded(pair[1]), side)
+               for side, pair in (("rows", own), ("cols", streamed))
+               if pair is not None]
     r = q[torch.arange(nb, device=q.device) * block]          # [nb, f]
     t = (pb.double() * r[:, None].double()).sum(-1)
     t_hi = t.float()
@@ -218,15 +310,19 @@ def _bwd_3xtf32_plain(p, q, lse, g, tau: float, block: int, tile: int,
              - r.view(nb, 1, 1, f))                    # [nb, k, tile, f]
         s = matmul_3xtf32(pb[:, None], v)              # [nb, k, block, tile]
         s = (s + t_lo[:, None, :, None]) + t_hi[:, None, :, None]
-        anchor = cols if db else rows  # the index i of lse_i and g_i
-        coef = -torch.exp(s * (1.0 / tau) - lse_p[anchor])
-        coef = coef + (rows == cols).to(coef.dtype)
-        coef = coef * (g_p[anchor] * (1.0 / tau)) * (cols < n).to(coef.dtype)
+        terms = {}
+        for lse_p, g_p, side in anchors:
+            anchor = rows if side == "rows" else cols  # i of lse_i, g_i
+            term = -torch.exp(s * (1.0 / tau) - lse_p[anchor])
+            term = term + (rows == cols).to(term.dtype)
+            terms[side] = (term * (g_p[anchor] * (1.0 / tau))
+                           * (cols < n).to(term.dtype))
+        coef = sum(terms.values())
         for part in matmul_3xtf32(coef, v.mT).unbind(1):  # tile by tile
             total += part
-        if db:
-            c64 += coef.sum(-1).double().sum(1)
-    if db:
+        if streamed is not None:
+            c64 += terms["cols"].sum(-1).double().sum(1)
+    if streamed is not None:
         total = (total.double() + c64[..., None] * r[:, None].double()
                  ).to(p.dtype)
     return total.reshape(nb * block, f)[:n]
@@ -239,7 +335,7 @@ def infonce_bwd_da_3xtf32_plain(a, b, lse, g, tau: float, block: int = 64,
     with r its first row of B. The coefficients of a row sum to 0 when lse
     is the row's logsumexp, so this is dA, and no term is larger than the
     rows' differences."""
-    return _bwd_3xtf32_plain(a, b, lse, g, tau, block, tile, db=False)
+    return _bwd_3xtf32_plain(a, b, (lse, g), None, tau, block, tile)
 
 
 def infonce_bwd_db_3xtf32_plain(a, b, lse, g, tau: float, block: int = 64,
@@ -251,7 +347,19 @@ def infonce_bwd_db_3xtf32_plain(a, b, lse, g, tau: float, block: int = 64,
     sums are not 0, so without r c_j the shift would change the result;
     and their rounding, through r c_j, is what limits dB on alike rows (the
     tests hold it to 2e-4 of the largest entry at spread 0.003)."""
-    return _bwd_3xtf32_plain(b, a, lse, g, tau, block, tile, db=True)
+    return _bwd_3xtf32_plain(b, a, None, (lse, g), tau, block, tile)
+
+
+def infonce_bwd_pair_3xtf32_plain(p, q, lse_own, g_own, lse_str, g_str,
+                                  tau: float, block: int = 64,
+                                  tile: int = 32):
+    """`infonce_bwd_pair_plain` in the kernels' arithmetic
+    (`_bwd_3xtf32_plain`): a block of rows of p sums G_ij (q_j - r) with
+    both anchors' terms in G and adds back r c_i, c_i the sum over j of
+    the streamed anchors' terms in float64, on either side: (a, b) for dA
+    of the pair, (b, a) for dB."""
+    return _bwd_3xtf32_plain(p, q, (lse_own, g_own), (lse_str, g_str), tau,
+                             block, tile)
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +420,86 @@ class InfoNCECore(torch.autograd.Function):
         return da, db, None
 
 
+def infonce_fwd_pair(a: torch.Tensor, b: torch.Tensor, tau: float):
+    """(out1, lse1, out2, lse2) of the pair forward kernel (both
+    directions); the plain version on the CPU."""
+    _check_shapes(a, b)
+    if _on_cpu(a, b):
+        return infonce_fwd_pair_plain(a, b, tau)
+    n, f = a.shape
+    out1, lse1, out2, lse2, diag = (
+        torch.empty(n, dtype=torch.float32, device=a.device)
+        for _ in range(5))
+    ws = torch.empty(-(-n // PAIR_FWD_ROWS), n, dtype=torch.float32,
+                     device=a.device)
+    _launch("infonce_fwd_pair", a, b, out1, lse1, out2, lse2, diag, ws, n=n,
+            f=f, tau=tau)
+    return out1, lse1, out2, lse2
+
+
+def infonce_bwd_pair(p, q, lse_own, g_own, lse_str, g_str,
+                     tau: float) -> torch.Tensor:
+    """The pair's gradient for the rows of p (`infonce_bwd_pair_plain`)
+    from the pair gradient kernel; the plain version on the CPU."""
+    _check_shapes(p, q, lse_own, g_own, lse_str, g_str)
+    if _on_cpu(p, q, lse_own, g_own, lse_str, g_str):
+        return infonce_bwd_pair_plain(p, q, lse_own, g_own, lse_str, g_str,
+                                      tau)
+    grad = torch.empty_like(p)
+    _launch("infonce_bwd_pair", p, q, lse_own, g_own, lse_str, g_str, grad,
+            n=p.shape[0], f=p.shape[1], tau=tau)
+    return grad
+
+
+class InfoNCEPair(torch.autograd.Function):
+    """(out1, out2): the per-row values of both directions, sim_ii - lse1_i
+    and sim_jj - lse2_j, of normalised [n, f] float32 inputs, with one
+    pair forward and a pair gradient launch for each input. Below
+    `PAIR_FWD_MIN_TAU` the forward is two one-way launches."""
+
+    @staticmethod
+    def forward(ctx, a, b, tau: float):
+        if tau >= PAIR_FWD_MIN_TAU:
+            out1, lse1, out2, lse2 = infonce_fwd_pair(a, b, tau)
+        else:
+            (out1, lse1), (out2, lse2) = (infonce_fwd(a, b, tau),
+                                          infonce_fwd(b, a, tau))
+        ctx.save_for_backward(a, b, lse1, lse2)
+        ctx.tau = tau
+        return out1, out2
+
+    @staticmethod
+    def backward(ctx, g_out1, g_out2):
+        a, b, lse1, lse2 = ctx.saved_tensors
+        g1 = g_out1.contiguous().to(torch.float32)
+        g2 = g_out2.contiguous().to(torch.float32)
+        da = (infonce_bwd_pair(a, b, lse1, g1, lse2, g2, ctx.tau)
+              if ctx.needs_input_grad[0] else None)
+        db = (infonce_bwd_pair(b, a, lse2, g2, lse1, g1, ctx.tau)
+              if ctx.needs_input_grad[1] else None)
+        return da, db, None
+
+
+def takes_pair(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The shape rule of the pair kernels, those of the `wgmma` kernels:
+    f <= 128, f % 4 == 0 and 16-byte aligned rows."""
+    f = a.shape[1]
+    return (f <= 128 and f % 4 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0)
+
+
+def infonce_pair(a: torch.Tensor, b: torch.Tensor, tau: float):
+    """(out1, out2) of both directions on normalised float32 a and b: the
+    pair where `takes_pair`, else two `InfoNCECore` (the one-way kernels).
+    While a profiler records, the counter `infonce.pair` adds 1 for the
+    pair and 0 for the one-way kernels."""
+    if takes_pair(a, b):
+        tracing.count("infonce.pair", 1)
+        return InfoNCEPair.apply(a, b, tau)
+    tracing.count("infonce.pair", 0)
+    return InfoNCECore.apply(a, b, tau), InfoNCECore.apply(b, a, tau)
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -340,6 +528,20 @@ def infonce_fused(anchor: torch.Tensor, sample: torch.Tensor,
     a = l2norm(anchor.to(torch.float32)).contiguous()
     b = l2norm(sample.to(torch.float32)).contiguous()
     return masked_mean_loss(InfoNCECore.apply(a, b, float(tau)), anchor_mask)
+
+
+def infonce_fused_pair(h1: torch.Tensor, h2: torch.Tensor, tau: float = 0.2,
+                       anchor_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The dual-branch identity InfoNCE, 0.5 (l(h1, h2) + l(h2, h1)) with
+    `infonce_fused`'s l, through `infonce_pair`: one pair of launches for
+    both directions where the shape rule allows. `anchor_mask` masks the
+    anchors of both directions."""
+    a = l2norm(h1.to(torch.float32)).contiguous()
+    b = l2norm(h2.to(torch.float32)).contiguous()
+    out1, out2 = infonce_pair(a, b, float(tau))
+    return 0.5 * (masked_mean_loss(out1, anchor_mask)
+                  + masked_mean_loss(out2, anchor_mask))
 
 
 def infonce_fused_plain(anchor: torch.Tensor, sample: torch.Tensor,

@@ -1,5 +1,7 @@
 """The arithmetic of the port's tensor-core InfoNCE kernels (forward, dA
-and dB), emulated in plain PyTorch on the CPU: every operand is split into
+and dB, and the pair's forward and gradient, which make both directions of
+the dual-branch loss at once), emulated in plain PyTorch on the CPU: every
+operand is split into
 hi = tf32(x) and lo = tf32(x - hi), and a product is taken as
 lo.hi + hi.lo + hi.hi in float32 ("3xTF32"); the gradients shift both
 products by a row r and sum tile by tile. Held against float64, against
@@ -145,6 +147,65 @@ def test_db_emulation_matches_float64_on_alike_rows(spread, bar):
     emulated, plain = _grad_errors("db", spread)
     assert emulated <= bar
     assert emulated <= plain
+
+
+def _pair_problem(kind, n, spread, mask_on, tau=0.2):
+    """Unit rows, the per-row gradients of 0.5 (l(a, b) + l(b, a)) under
+    an anchor mask, and the float64 references: lse1, lse2 and dA, dB of
+    the pair."""
+    a, b = _unit_rows(kind, n, 128 if kind == "alike" else 50, seed=n,
+                      spread=spread)
+    r = np.random.default_rng(n + 1)
+    w = (torch.tensor(r.random(n) < 0.85, dtype=torch.float32) if mask_on
+         else torch.ones(n))
+    g = -0.5 * w / w.sum()
+    a64, b64, g64 = a.double(), b.double(), g.double()
+    _o1, lse1, _o2, lse2 = K.infonce_fwd_pair_plain(a64, b64, tau)
+    da = K.infonce_bwd_pair_plain(a64, b64, lse1, g64, lse2, g64, tau)
+    db = K.infonce_bwd_pair_plain(b64, a64, lse2, g64, lse1, g64, tau)
+    return a, b, g, lse1, lse2, {"a": da, "b": db}
+
+
+# n ragged against the gradients' 64 and 32, with and without a mask, and
+# alike rows
+@pytest.mark.parametrize("side", ["a", "b"])
+@pytest.mark.parametrize("kind,n,spread,mask_on", [
+    ("random", 333, 1.0, False), ("random", 333, 1.0, True),
+    ("alike", 1000, 0.03, True), ("alike", 2000, 0.003, False)])
+def test_pair_emulation_matches_float64(side, kind, n, spread, mask_on):
+    """The pair gradient kernel's arithmetic (`_bwd_3xtf32_plain` with both
+    anchors' terms, the add-back of the streamed ones' sums), on either
+    owner side, within 1e-4 of the largest entry of the float64 gradient
+    of 0.5 (l(a, b) + l(b, a)), as tight as the one-way dA; and no worse
+    than the plain float32 version."""
+    a, b, g, lse1, lse2, refs = _pair_problem(kind, n, spread, mask_on)
+    l1, l2 = lse1.float(), lse2.float()
+    p, q, own, streamed = ((a, b, l1, l2) if side == "a" else (b, a, l2, l1))
+    ref = refs[side]
+
+    def err(x):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    emulated = err(K.infonce_bwd_pair_3xtf32_plain(p, q, own, g, streamed, g,
+                                                   0.2))
+    plain = err(K.infonce_bwd_pair_plain(p, q, own, g, streamed, g, 0.2))
+    assert emulated <= 1e-4
+    assert emulated <= max(plain, 1e-6)
+
+
+@pytest.mark.parametrize("kind,spread", [("random", 1.0), ("alike", 0.03),
+                                         ("alike", 0.003)])
+@pytest.mark.parametrize("tau", [0.2, K.PAIR_FWD_MIN_TAU])
+def test_pair_forward_emulation_matches_float64(kind, spread, tau):
+    """The pair forward kernel's arithmetic: the fixed shift by 1/tau in
+    place of a running max keeps both directions' values and logsumexps
+    within rtol 1e-5 of float64, down to `PAIR_FWD_MIN_TAU`, on n ragged
+    against its 128 rows."""
+    a, b = _unit_rows(kind, 1000, 128, seed=5, spread=spread)
+    refs = K.infonce_fwd_pair_plain(a.double(), b.double(), tau)
+    for got, ref in zip(K.infonce_fwd_pair_3xtf32_plain(a, b, tau), refs):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)
 
 
 def _truncating_3xtf32(p, q):

@@ -9,17 +9,20 @@ InfoNCE values within rtol 1e-5 / atol 1e-5, gradients within rtol 1e-4 /
 atol 1e-6, in float32 with TF32 off; on alike rows all three kernels are
 held against float64, within 1e-4 of the largest entry (dB 2e-4 on rows
 alike to 0.003, where the rounding of its float32 coefficients reaches it
-through its column sums). The access probes are int32 and must be
-bit-equal: the eight kernels at the probes' shapes, C1 and V1 on ragged
-and offset indices and unaligned tables, C1 and the scatter-min on
-hub-heavy streams (`tests/test_torch_access_cases.py`), the cluster walk
-of C3 at each cluster size of its plan, with its cycle counts, the
+through its column sums). The pair kernels (both directions of the
+dual-branch loss at once) are held to the same values and gradients,
+against their plain versions, the one-way kernels and float64 (within 1e-4
+on alike rows at both spreads), bit-equal from run to run, and to the shape
+rule and launch counts of their callers. The access probes are int32 and
+must be bit-equal: the eight kernels at the probes' shapes, C1 and V1 on
+ragged and offset indices and unaligned tables, C1 and the scatter-min on
+hub-heavy streams (`tests/test_torch_access_cases.py`), the cluster walk of
+C3 at each cluster size of its plan, with its cycle counts, the
 cluster-resident table of C2 at each swept cluster size, at the plan's
-capacity edge, on ragged and offset indices, with its spans, V4 on a
-table past that edge, and the column slabs of
-V2 at each slab width, on ragged, offset and hub-heavy indices, at the
-plan's edges. The roofline's price measurement holds C1 and C4 bit-equal
-before it times them.
+capacity edge, on ragged and offset indices, with its spans, V4 on a table
+past that edge, and the column slabs of V2 at each slab width, on ragged,
+offset and hub-heavy indices, at the plan's edges. The roofline's price
+measurement holds C1 and C4 bit-equal before it times them.
 """
 
 import numpy as np
@@ -157,6 +160,219 @@ def test_cuda_autograd_matches_plain():
         res.append((loss.detach(), x.grad, y.grad))
     torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-5, atol=1e-5)
     for got, want in zip(res[0][1:], res[1][1:]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def _launched(before):
+    return {k: K.launch_counts[k] - before[k] for k in K.launch_counts}
+
+
+def _pair_launches(fwd_pair, bwd_pair, fwd=0, da=0, db=0):
+    return {"infonce_fwd": fwd, "infonce_bwd_da": da, "infonce_bwd_db": db,
+            "infonce_fwd_pair": fwd_pair, "infonce_bwd_pair": bwd_pair}
+
+
+def _pair_grads(a, b, lse1, g1, lse2, g2, tau, fn):
+    """dA and dB of the pair from `fn` (the pair kernel or its plain
+    version) on both sides."""
+    return (fn(a, b, lse1, g1, lse2, g2, tau),
+            fn(b, a, lse2, g2, lse1, g1, tau))
+
+
+# the shapes of the pair: f <= 128, f % 4 == 0; ragged n against the
+# forward's 128 rows and 64 columns and the gradients' 64 and 32
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,tau", [(1000, 100, 0.2), (2048, 128, 0.5),
+                                     (129, 100, 0.2), (4097, 72, 0.2),
+                                     (7, 4, 0.5), (33, 8, 0.2),
+                                     (65, 124, 0.5), (1000, 128, 0.2),
+                                     (20001, 32, 0.2)])
+def test_cuda_pair_kernels_match_plain_and_the_one_way_kernels(n, f, tau):
+    """The pair forward against its plain version and the two one-way
+    forwards (rtol 1e-5 / atol 1e-5); the pair gradients against their
+    plain versions and against the sum of the four one-way launches that
+    make the same gradients (rtol 1e-4 / atol 1e-6)."""
+    _needs_card()
+    a, b, _m, g1 = _inputs(n, f, n + f, "cuda")
+    g2 = torch.roll(g1, 1) * 0.5
+    before = dict(K.launch_counts)
+    got = K.infonce_fwd_pair(a, b, tau)
+    plain = K.infonce_fwd_pair_plain(a, b, tau)
+    one_way = K.infonce_fwd(a, b, tau) + K.infonce_fwd(b, a, tau)
+    for x, p, w in zip(got, plain, one_way):
+        torch.testing.assert_close(x, p, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(x, w, rtol=1e-5, atol=1e-5)
+    _o1, lse1, _o2, lse2 = plain
+    da, db = _pair_grads(a, b, lse1, g1, lse2, g2, tau, K.infonce_bwd_pair)
+    da_p, db_p = _pair_grads(a, b, lse1, g1, lse2, g2, tau,
+                             K.infonce_bwd_pair_plain)
+    da4 = (K.infonce_bwd_da(a, b, lse1, g1, tau)
+           + K.infonce_bwd_db(b, a, lse2, g2, tau))
+    db4 = (K.infonce_bwd_db(a, b, lse1, g1, tau)
+           + K.infonce_bwd_da(b, a, lse2, g2, tau))
+    for x, p, w in ((da, da_p, da4), (db, db_p, db4)):
+        torch.testing.assert_close(x, p, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+    assert _launched(before) == _pair_launches(1, 2, fwd=2, da=2, db=2)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_kernels_repeat_bit_for_bit():
+    """No atomics: two runs of the pair give the same bits."""
+    _needs_card()
+    n, f, tau = 5003, 128, 0.2
+    a, b, _m, g1 = _inputs(n, f, 5, "cuda")
+    g2 = torch.roll(g1, 3)
+    runs = []
+    for _ in range(2):
+        out = K.infonce_fwd_pair(a, b, tau)
+        _o1, lse1, _o2, lse2 = out
+        runs.append(out + _pair_grads(a, b, lse1, g1, lse2, g2, tau,
+                                      K.infonce_bwd_pair))
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [0.03, 0.003])
+def test_cuda_pair_kernels_match_float64_on_alike_rows(spread):
+    """Rows that share a direction: both directions' values and the pair's
+    gradients within 1e-4 of the largest entry of the float64 result. The
+    add-back sums only the streamed rows' terms, so neither side carries
+    the rounding of the owned rows' sums."""
+    _needs_card()
+    n, f, tau = 5000, 128, 0.2
+    r = np.random.default_rng(12)
+    c = r.normal(size=(1, f))
+    a, b = (K.l2norm(torch.tensor(c + spread * r.normal(size=(n, f)),
+                                  dtype=torch.float32)).cuda().contiguous()
+            for _ in range(2))
+    g = torch.full((n,), -0.5 / n, device="cuda")
+    a64, b64, g64 = a.double(), b.double(), g.double()
+    o1_64, lse1_64, o2_64, lse2_64 = K.infonce_fwd_pair_plain(a64, b64, tau)
+    refs = (o1_64, o2_64) + _pair_grads(a64, b64, lse1_64, g64, lse2_64,
+                                        g64, tau, K.infonce_bwd_pair_plain)
+    o1, _lse1, o2, _lse2 = K.infonce_fwd_pair(a, b, tau)
+    got = (o1, o2) + _pair_grads(a, b, lse1_64.float(), g, lse2_64.float(),
+                                 g, tau, K.infonce_bwd_pair)
+    torch.cuda.synchronize()
+    for x, ref in zip(got, refs):
+        err = (x.double() - ref).abs().max() / ref.abs().max()
+        assert float(err) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,pair", [(128, True), (32, True), (130, False),
+                                    (126, False)])
+def test_cuda_pair_takes_the_wgmma_widths(f, pair):
+    """The shape rule: the pair at f <= 128 with f % 4 == 0, else the
+    one-way kernels (two forwards, two dA, two dB); the pair's wrappers
+    refuse the other widths rather than run them some other way."""
+    _needs_card()
+    n = 300
+    a, b, _m, g = _inputs(n, f, f, "cuda")
+    assert K.takes_pair(a, b) == pair
+    x, y = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    before = dict(K.launch_counts)
+    out1, out2 = K.infonce_pair(x, y, 0.2)
+    ((out1 + out2) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert _launched(before) == (_pair_launches(1, 2) if pair else
+                                 _pair_launches(0, 0, fwd=2, da=2, db=2))
+    if not pair:
+        with pytest.raises(RuntimeError):
+            K.infonce_fwd_pair(a, b, 0.2)
+        with pytest.raises(RuntimeError):
+            K.infonce_bwd_pair(a, b, g, g, g, g, 0.2)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_refuses_rows_that_are_not_16_byte_aligned():
+    """Rows one float into their storage take the one-way kernels, whose
+    4-byte path gives the pair's values."""
+    _needs_card()
+    n, f, tau = 300, 64, 0.2
+    a, b, _m, g = _inputs(n, f, 9, "cuda")
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, device="cuda")
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        return view.requires_grad_(True)
+
+    res = []
+    for x, y in ((a.clone().requires_grad_(True),
+                  b.clone().requires_grad_(True)), (shifted(a), shifted(b))):
+        before = dict(K.launch_counts)
+        out1, out2 = K.infonce_pair(x, y, tau)
+        ((out1 + out2) * g).sum().backward()
+        torch.cuda.synchronize()
+        res.append((_launched(before), out1, out2, x.grad, y.grad))
+    assert res[0][0] == _pair_launches(1, 2)
+    assert res[1][0] == _pair_launches(0, 0, fwd=2, da=2, db=2)
+    for got, want in zip(res[1][1:3], res[0][1:3]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for got, want in zip(res[1][3:], res[0][3:]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_below_the_fixed_shift_takes_two_forwards():
+    """At tau under `PAIR_FWD_MIN_TAU` the pair's forward is two one-way
+    launches, its gradients the pair kernels; the values and gradients
+    still match the plain loss."""
+    _needs_card()
+    n, f, tau = 500, 64, 0.02
+    a, b, m, _g = _inputs(n, f, 4, "cuda")
+    res = []
+    for fn in (K.infonce_fused_pair, _two_plain_directions):
+        x, y = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        before = dict(K.launch_counts)
+        loss = fn(x, y, tau=tau, anchor_mask=m.bool())
+        loss.backward()
+        torch.cuda.synchronize()
+        res.append((_launched(before), loss.detach(), x.grad, y.grad))
+    assert res[0][0] == _pair_launches(0, 2, fwd=2)
+    torch.testing.assert_close(res[0][1], res[1][1], rtol=1e-5, atol=1e-5)
+    for got, want in zip(res[0][2:], res[1][2:]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def _two_plain_directions(h1, h2, tau, anchor_mask):
+    return 0.5 * (K.infonce_fused_plain(h1, h2, tau, anchor_mask)
+                  + K.infonce_fused_plain(h2, h1, tau, anchor_mask))
+
+
+@pytest.mark.cuda
+def test_cuda_grace_loss_launches_the_pair_once():
+    """GRACE's loss (`DualBranchContrast`, "auto") at f = 128 on the card:
+    one pair forward and two pair gradient launches, no one-way launch,
+    the counter `infonce.pair` at 1 while a profiler records; the loss and
+    both gradients as the plain two directions give them."""
+    _needs_card()
+    from rlap_tpu_torch.objectives.contrast import DualBranchContrast
+    from rlap_tpu_torch.utils import tracing
+
+    a, b, m, _g = _inputs(3001, 128, 6, "cuda")
+    res = []
+    for fn in (DualBranchContrast("auto", tau=0.2),
+               DualBranchContrast("infonce_batched", tau=0.2)):
+        x, y = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        before = dict(K.launch_counts)
+        with torch.profiler.profile():
+            loss = fn(x, y, node_mask=m.bool())
+            counted = tracing.counters()
+        loss.backward()
+        torch.cuda.synchronize()
+        res.append((_launched(before), counted, loss.detach(), x.grad,
+                    y.grad))
+    assert res[0][0] == _pair_launches(1, 2)
+    assert res[0][1] == {"infonce.pair": 1.0}
+    assert res[1][0] == _pair_launches(0, 0) and res[1][1] == {}
+    torch.testing.assert_close(res[0][2], res[1][2], rtol=1e-5, atol=1e-5)
+    for got, want in zip(res[0][3:], res[1][3:]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
 
@@ -670,7 +886,8 @@ def test_time_stream_runs_on_the_cpu():
 @pytest.mark.cuda
 def test_cli_grace_launches_the_kernels_on_the_card(tmp_path, monkeypatch):
     """The recipe CLI with no device= trains GRACE on the card through the
-    three kernels, each twice an epoch, at a ragged node count."""
+    pair kernels (f = 32): a pair forward and two pair gradient launches
+    an epoch, no one-way launch, at a ragged node count."""
     _needs_card()
     from rlap_tpu_torch.cli.run import run_one
     from rlap_tpu_torch.data import loaders as L
@@ -684,7 +901,7 @@ def test_cli_grace_launches_the_kernels_on_the_card(tmp_path, monkeypatch):
     before = dict(K.launch_counts)
     run_one(cfg, results_dir=str(tmp_path))
     torch.cuda.synchronize()
-    assert all(K.launch_counts[k] - before[k] == 6 for k in K.KERNELS)
+    assert _launched(before) == _pair_launches(3, 6)
     recs = list(read_metrics(str(tmp_path / f"{cfg.run_name()}.jsonl")))
     (test_run,) = [r for r in recs if r["event"] == "test_run"]
     assert 0 <= test_run["accuracy"] <= 1
